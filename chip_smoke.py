@@ -41,12 +41,17 @@ PEAK_FLOPS = {'bfloat16': 989e12, 'float32': 67e12}
 PEAK_BYTES = 3.35e12
 
 # (name, (N, H, W, Cin), Cm, bf16 launches expected per dense-test video):
-# the unit-test shapes, a ragged shape that takes the tiled bf16 path (H and
-# W not multiples of its tile), and the two shapes of the dense-test path
+# the unit-test shapes, shapes that take the tiled bf16 path at the edges of
+# its strip walk (H and W not multiples of its tile; a ragged last step;
+# H = 1; H below the step with W ragged), and the two shapes of the
+# dense-test path
 FUSED_SHAPES = [
     ('test_a', (2, 8, 8, 32), 16, 0),
     ('test_b', (1, 6, 10, 24), 8, 0),
     ('ragged_tiled', (3, 13, 11, 128), 64, 0),
+    ('ragged_step', (160, 37, 20, 128), 64, 0),
+    ('one_row', (1, 1, 64, 256), 64, 0),
+    ('short_ragged', (2, 3, 9, 192), 128, 0),
     ('layer1', (240, 64, 64, 256), 64, 2),
     ('layer2', (240, 32, 32, 512), 128, 3),
 ]
@@ -178,6 +183,10 @@ def phase_kernel():
                 print('kernel check: ' + json.dumps(rec))
                 require(ok, f'fused_bottleneck {name} {dtype_name}: max abs '
                             f'err {err} > tol {tol}')
+                require(rec['path'] == 'tiled' or dtype_name != 'bfloat16'
+                        or cin % 64 or cm % 64,
+                        f'fused_bottleneck {name}: bf16 took the '
+                        f'{rec["path"]} kernel, not the tiled one')
                 records.append(rec)
                 del args, got, want
                 torch.cuda.empty_cache()

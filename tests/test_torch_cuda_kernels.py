@@ -17,9 +17,13 @@ from mvfnet_tpu_torch.ops import fused_block as fb
 
 pytestmark = pytest.mark.cuda
 
-# (N, H, W, Cin), Cm: the JAX suite's shapes (general kernel) and a shape
-# that takes the tiled bf16 kernel with H and W not multiples of its tile
-SHAPES = [((2, 8, 8, 32), 16), ((1, 6, 10, 24), 8), ((3, 13, 11, 128), 64)]
+# (N, H, W, Cin), Cm: the JAX suite's shapes (general kernel), and shapes
+# that take the tiled bf16 kernel at the edges of its strip walk: H and W
+# not multiples of its tile, H not a multiple of the strip or the step
+# (a ragged last step), H = 1, and H below the step with W ragged
+SHAPES = [((2, 8, 8, 32), 16), ((1, 6, 10, 24), 8), ((3, 13, 11, 128), 64),
+          ((160, 37, 20, 128), 64), ((1, 1, 64, 256), 64),
+          ((2, 3, 9, 192), 128)]
 
 
 @pytest.fixture
@@ -46,6 +50,9 @@ def _inputs(shape, cm, dtype):
 def test_fused_bottleneck_matches_plain(cuda, shape, cm, dtype):
     args = _inputs(shape, cm, getattr(torch, dtype))
     key = (dtype,) + shape + (cm,)
+    n, h, w, cin = shape
+    if dtype == 'bfloat16' and cin % 64 == 0 and cm % 64 == 0:
+        assert fb.kernel_path(torch.bfloat16, h, w, cin, cm) == 'tiled'
     before = (fb.bottleneck_eval_cuda.launches,
               fb.bottleneck_eval_cuda.launches_by_shape[key])
     got = fb.bottleneck_eval(*args).float()
