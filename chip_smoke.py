@@ -18,6 +18,15 @@ Phases, each of which exits non-zero on failure:
    layer1 and 3 at layer2 per video, bf16, nothing else), and compares one
    video against the same model with the kernels' plain versions on the
    card.
+4. train: builds the same model anew with the recipe's LR schedule and
+   optimizer (SGD nesterov, clip at 40) through the port's entry points,
+   takes 2 warm-up and 5 timed train steps on (12, 8, 224, 224, 3) uint8
+   batches (bf16 compute, fp32 params), counts one step's FLOPs and
+   profiles another; checks finite metrics, a first loss near ln 400, that
+   parameters and BN statistics moved, no fused-kernel launch while
+   training, one step from a copied state in bf16 against fp32 (TF32 off),
+   and then one dense-test video of the trained model against its plain
+   path (the fold cache must see the trained weights).
 
 Prints the ``{"kernels": [...]}`` line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -57,6 +66,16 @@ FUSED_SHAPES = [
 ]
 TIMED_RUNS = 25
 VIDEOS = 3
+VIEWS, CROP = 30, 256       # a dense-test video: 3 crops x 10 clips of 256^2
+# the train phase: (videos, frames, H, W, C) per step, warm-up and timed
+# steps; the loader is not ported, so a fixed iteration count per epoch
+# stands in for Kinetics-400's (about 240k clips in batches of 12 on 8
+# cards: 2,500) in the recipe's LR schedule
+TRAIN_BATCH = (12, 8, 224, 224, 3)
+TRAIN_WARMUP, TRAIN_STEPS = 2, 5
+ITERS_PER_EPOCH = 2500
+# ln 400 = 5.991: the first loss may lie 0.2 below it or 1.5 above it
+FIRST_LOSS = (5.79, 7.49)
 KERNEL = dict(name='fused_bottleneck', route='cuda',
               source='mvfnet_tpu_torch/csrc/fused_bottleneck.cu',
               replaces='mvfnet_tpu/ops/fused_block.py:144')
@@ -200,8 +219,10 @@ def _kernel_kind(name):
     low = name.lower()
     for kind, keys in (('fused_bottleneck', ('fused_bottleneck',)),
                        ('conv', ('conv', 'xmma', 'gemm', 'cutlass', 'sm90_',
-                                 'implicit')),
-                       ('batch_norm', ('batch_norm', 'bn_fw', 'batchnorm')),
+                                 'implicit', 'dgrad', 'wgrad')),
+                       ('batch_norm', ('batch_norm', 'bn_fw', 'bn_bw',
+                                       'batchnorm')),
+                       ('optimizer', ('multi_tensor_apply',)),
                        ('pool', ('pool',)),
                        ('reduce', ('reduce', 'softmax'))):
         if any(k in low for k in keys):
@@ -223,8 +244,11 @@ def device_profile(fn):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    # device kernels and copies, not the device-side ranges of annotations
+    # such as the optimizer's record_function
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA
+                   and not getattr(e, 'is_user_annotation', False))
     if not spans:
         return dict(wall_ms=wall_ms, note='the profiler saw no device events')
     by_kind, by_name, busy, end = {}, {}, 0.0, float('-inf')
@@ -238,10 +262,47 @@ def device_profile(fn):
     return dict(
         wall_ms=wall_ms, kernels=len(spans),
         kernel_ms=sum(by_kind.values()) / 1e3, busy_ms=busy / 1e3,
-        idle_share=max(0.0, 1 - busy / 1e3 / wall_ms),
+        idle_share=1 - busy / 1e3 / wall_ms,
         by_kind_ms={k: v / 1e3 for k, v in sorted(
             by_kind.items(), key=lambda kv: -kv[1])},
         top_kernels_ms=[[n, v / 1e3] for n, v in top])
+
+
+def compare_with_plain(phase, step, model, video):
+    """One video's per-clip logits through the kernels against the same
+    model with the kernels' plain versions; returns the fused kernel's
+    launches in the kernel path's call, by (dtype, N, H, W, Cin, Cm)."""
+    import torch
+    from mvfnet_tpu_torch.ops import fused_block as fb
+    test_cfg = model.test_cfg
+    model.test_cfg = dict(average_clips=None)
+    fb.bottleneck_eval_cuda.launches_by_shape.clear()
+    try:
+        logits = step(model, video).float().cpu()
+        launches = dict(fb.bottleneck_eval_cuda.launches_by_shape)
+        fb.FORCE = 'plain'
+        plain = step(model, video).float().cpu()
+    finally:
+        fb.FORCE = None
+        model.test_cfg = test_cfg
+    ref_max = plain.abs().max().item()
+    err = (logits - plain).abs().max().item()
+    tol = 3e-2 * ref_max
+    am_k, am_p = logits.argmax(-1), plain.argmax(-1)
+    # a differing argmax is accepted only where the plain path's top two
+    # classes lie within the tolerance of each other (a near tie)
+    rows = torch.arange(plain.shape[0])
+    margin = plain[rows, am_p] - plain[rows, am_k]
+    agree = int((am_k == am_p).sum())
+    print(f'{phase} compare: ' + json.dumps(dict(
+        clips=plain.shape[0], max_abs_err=err, tol=tol, ref_max=ref_max,
+        argmax_agree=agree, max_margin_where_differs=float(margin.max()))))
+    require(bool(torch.isfinite(logits).all()), f'{phase}: non-finite logits')
+    require(err <= tol, f'{phase}: kernel path vs plain path logits: {err} '
+                        f'> {tol}')
+    require(bool((margin <= tol).all()),
+            f'{phase}: argmax differs beyond a near tie')
+    return launches
 
 
 def phase_slice():
@@ -263,10 +324,10 @@ def phase_slice():
     model.to(device)
     step = make_eval_step(model, norm_cfg=dict(cfg.img_norm_cfg, device=True))
     clip_len = cfg.model['module_cfg']['n_segment']
-    views = 30                                  # 3 crops x 10 clips
+    views = VIEWS
     frames = views * clip_len
     videos = [np.random.RandomState(seed).randint(
-        0, 256, (1, frames, 256, 256, 3), dtype=np.uint8)
+        0, 256, (1, frames, CROP, CROP, 3), dtype=np.uint8)
         for seed in range(VIDEOS)]
 
     warm = step(model, videos[0])                # cuDNN set-up, allocator
@@ -297,29 +358,7 @@ def phase_slice():
             f'fused kernel launched {fb.bottleneck_eval_cuda.launches} '
             f'times in all')
 
-    # one video against the kernels' plain versions, per-clip logits
-    model.test_cfg = dict(average_clips=None)
-    logits = step(model, videos[0]).float().cpu()
-    fb.FORCE = 'plain'
-    try:
-        plain = step(model, videos[0]).float().cpu()
-    finally:
-        fb.FORCE = None
-        model.test_cfg = cfg.test_cfg
-    ref_max = plain.abs().max().item()
-    err = (logits - plain).abs().max().item()
-    tol = 3e-2 * ref_max
-    am_k, am_p = logits.argmax(-1), plain.argmax(-1)
-    # a differing argmax is accepted only where the plain path's top two
-    # classes lie within the tolerance of each other (a near tie)
-    rows = torch.arange(plain.shape[0])
-    margin = plain[rows, am_p] - plain[rows, am_k]
-    agree = int((am_k == am_p).sum())
-    print('slice compare: ' + json.dumps(dict(
-        clips=plain.shape[0], max_abs_err=err, tol=tol, ref_max=ref_max,
-        argmax_agree=agree, max_margin_where_differs=float(margin.max()))))
-    require(err <= tol, f'kernel path vs plain path logits: {err} > {tol}')
-    require(bool((margin <= tol).all()), 'argmax differs beyond a near tie')
+    compare_with_plain('slice', step, model, videos[0])
 
     print('profile: ' + json.dumps(device_profile(
         lambda: step(model, videos[1]))))
@@ -330,6 +369,143 @@ def phase_slice():
         median_clips_per_s=statistics.median(clips_per_s),
         fused_launches=sum(launches.values()), card=card_line())))
     return launches
+
+
+def phase_train():
+    """The train step on the card: returns nothing, prints the train,
+    train compare, train profile and train eval lines."""
+    import copy
+
+    import numpy as np
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from mvfnet_tpu_torch.config import Config
+    from mvfnet_tpu_torch.engine.optim import (build_lr_schedule,
+                                               build_optimizer,
+                                               frozen_prefixes_from_backbone)
+    from mvfnet_tpu_torch.engine.train_step import (make_eval_step,
+                                                    make_train_step)
+    from mvfnet_tpu_torch.models import build_recognizer
+    from mvfnet_tpu_torch.ops import fused_block as fb
+
+    cfg = Config.fromfile(CONFIG)
+    model = build_recognizer(
+        {**cfg.model, 'fcn_testing': True, 'dtype': cfg.compute_dtype},
+        train_cfg=cfg.train_cfg, test_cfg=cfg.test_cfg)
+    model.init_weights(torch.Generator().manual_seed(0))
+    model.to('cuda')
+    schedule = build_lr_schedule(cfg.lr_config, cfg.optimizer['lr'],
+                                 ITERS_PER_EPOCH, cfg.total_epochs)
+    frozen = frozen_prefixes_from_backbone(cfg.model['backbone'])
+
+    def train_step_for(m):
+        opt = build_optimizer(m, cfg.optimizer, schedule,
+                              grad_clip=cfg.optimizer_config['grad_clip'],
+                              frozen_prefixes=frozen)
+        return make_train_step(m, opt, schedule,
+                               norm_cfg=dict(cfg.img_norm_cfg, device=True))
+
+    step = train_step_for(model)
+    videos, classes = TRAIN_BATCH[0], cfg.model['cls_head']['num_classes']
+    batches = [(np.random.RandomState(seed).randint(
+                    0, 256, TRAIN_BATCH, dtype=np.uint8),
+                np.random.RandomState(1000 + seed).randint(0, classes, videos))
+               for seed in range(TRAIN_WARMUP + TRAIN_STEPS + 1)]
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+    fb.bottleneck_eval_cuda.launches = 0
+    fb.bottleneck_eval_cuda.launches_by_shape.clear()
+    metrics = [step(*batches[0], gen)]               # cuDNN set-up
+    with FlopCounterMode(display=False) as counter:  # warm-up 2, counted
+        metrics.append(step(*batches[1], gen))
+    flops = counter.get_total_flops()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    secs = []
+    for b in batches[TRAIN_WARMUP:TRAIN_WARMUP + TRAIN_STEPS]:
+        t0 = time.perf_counter()
+        metrics.append(step(*b, gen))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    med = statistics.median(secs)
+    prof = device_profile(lambda: step(*batches[-1], gen))
+    # the profiler slows the host; the device's busy time against the
+    # median unprofiled step gives the idle share of a step as timed. It is
+    # printed raw: busy time beyond the slowest unprofiled step means the
+    # profile over-counts, and fails below
+    require('busy_ms' in prof, f'train profile: {prof}')
+    prof['idle_share_of_median_step'] = 1 - prof['busy_ms'] / (med * 1e3)
+    fused = fb.bottleneck_eval_cuda.launches
+
+    losses = [m['loss'].item() for m in metrics]
+    norms = [m['grad_norm'].item() for m in metrics]
+    print('train: ' + json.dumps(dict(
+        steps=TRAIN_STEPS, warmup=TRAIN_WARMUP, batch=list(TRAIN_BATCH),
+        dtype=cfg.compute_dtype, step_s=secs, median_step_s=med,
+        median_clips_per_s=videos / med,
+        median_frames_per_s=videos * TRAIN_BATCH[1] / med,
+        max_memory_allocated_gib=peak / 2 ** 30,
+        flops_per_step=flops, train_mfu=flops / med / PEAK_FLOPS['bfloat16'],
+        loss=losses, grad_norm=norms, lr=[m['lr'] for m in metrics],
+        fused_launches=fused, card=card_line())))
+    print('train profile: ' + json.dumps(prof))
+    require(all(np.isfinite(losses + norms)),
+            f'non-finite train metrics: {losses} {norms}')
+    require(FIRST_LOSS[0] <= losses[0] <= FIRST_LOSS[1],
+            f'first loss {losses[0]} outside {FIRST_LOSS}')
+    after = model.state_dict()
+    still = [k for k, v in before.items() if 'num_batches' not in k
+             and torch.equal(v, after[k])]
+    require(not still, f'train steps left {still[:5]} unchanged')
+    require(fused == 0, f'the fused eval kernel launched {fused} times '
+                        f'while training')
+    require(prof['busy_ms'] <= max(secs) * 1e3,
+            f"device busy {prof['busy_ms']} ms in the profiled step exceeds "
+            f'the slowest unprofiled step, {max(secs) * 1e3} ms')
+
+    # one step from a copy of the trained state, in bf16 and in fp32
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    one = {}
+    try:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        for dtype in ('bfloat16', 'float32'):
+            twin = copy.deepcopy(model)
+            twin.dtype = getattr(torch, dtype)
+            twin_step = train_step_for(twin)
+            twin_step.state.step = step.state.step
+            m = twin_step(*batches[0],
+                          torch.Generator(device='cuda').manual_seed(1))
+            one[dtype] = (m['loss'].item(), m['grad_norm'].item())
+            del twin, twin_step, m
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+    rel = [abs(a - b) / abs(b) for a, b in zip(one['bfloat16'],
+                                                one['float32'])]
+    print('train compare: ' + json.dumps(dict(
+        bf16=one['bfloat16'], fp32=one['float32'], loss_rel=rel[0],
+        grad_norm_rel=rel[1], tol=[2e-2, 5e-2])))
+    require(rel[0] <= 2e-2, f'bf16 vs fp32 loss: relative {rel[0]}')
+    require(rel[1] <= 5e-2, f'bf16 vs fp32 grad norm: relative {rel[1]}')
+
+    # the trained model answers a dense-test video through the kernel
+    model.eval()
+    eval_step = make_eval_step(model,
+                               norm_cfg=dict(cfg.img_norm_cfg, device=True))
+    video = np.random.RandomState(0).randint(
+        0, 256, (1, VIEWS * TRAIN_BATCH[1], CROP, CROP, 3), dtype=np.uint8)
+    launches = compare_with_plain('train eval', eval_step, model, video)
+    expected = {('bfloat16',) + shape + (cm,): per_video
+                for _, shape, cm, per_video in FUSED_SHAPES if per_video}
+    require(launches == expected,
+            f'trained model: fused kernel launches {launches}, expected '
+            f'{expected}')
 
 
 def main():
@@ -360,6 +536,7 @@ def main():
         for r in records:
             r['launches'] = launches.get(
                 (r['dtype'],) + tuple(r['shape']), 0)
+        phase_train()
     except SmokeFailure as e:
         print(f'chip_smoke: FAILED: {e}', file=sys.stderr)
         return 1

@@ -136,7 +136,10 @@ class ResNet(nn.Module):
     ``mvf_freq``), every block of a selected stage gets the module.
     ``stem_s2d`` and ``pretrained`` are accepted for config compatibility:
     the stem is always the plain 7x7/s2/p3 conv, and weights come from the
-    checkpoint loader.
+    checkpoint loader. ``frozen_stages`` and ``norm_frozen`` freeze
+    parameters in the optimizer, not here
+    (``engine.optim.frozen_prefixes_from_backbone``); ``frozen_stages`` also
+    picks the stages that ``partial_norm`` keeps in eval mode.
     """
     arch_settings = {
         50: (Bottleneck, (3, 4, 6, 3)),
@@ -150,6 +153,7 @@ class ResNet(nn.Module):
                  out_indices: Sequence[int] = (0, 1, 2, 3),
                  style: str = 'pytorch', frozen_stages: int = -1,
                  norm_cfg: Optional[Dict] = None, norm_eval: bool = True,
+                 norm_frozen: bool = False,
                  partial_norm: bool = False, stem_s2d: bool = True,
                  temporal_cfg: Optional[Dict] = None,
                  temporal_freq: Sequence[int] = (0, 0, 0, 0),

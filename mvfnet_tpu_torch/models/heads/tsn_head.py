@@ -7,8 +7,11 @@ Inputs are channels-last, as in the JAX package:
   before the FC (a 1x1x1 conv is linear per position, so the mean of the
   class map equals the FC of the mean)
 
-The FC is ``new_fc``, the reference's name. Dropout acts only in train mode.
-Only the average is ported (``spatial_type='avg'``, avg consensus).
+The FC is ``new_fc``, the reference's name. Dropout acts only in train mode
+on the standard path, with the mask drawn from the caller's generator
+(``flax.linen.Dropout`` semantics: keep with probability 1-p, scale the kept
+by 1/(1-p)). The loss is cross-entropy in at least f32. Only the average is
+ported (``spatial_type='avg'``, avg consensus).
 """
 
 from __future__ import annotations
@@ -56,12 +59,31 @@ class TSNClsHead(nn.Module):
         return F.linear(feat, self.new_fc.weight.to(feat.dtype),
                         self.new_fc.bias.to(feat.dtype))
 
-    def forward(self, x: torch.Tensor, num_seg: int) -> torch.Tensor:
+    def dropout(self, feat: torch.Tensor,
+                generator: Optional[torch.Generator]) -> torch.Tensor:
+        """Zero each value with probability p, scale the rest by 1/(1-p);
+        the mask comes from ``generator`` (the device's default generator
+        when None). The identity in eval or with p = 0."""
+        p = self.dropout_ratio
+        if not (self.training and p):
+            return feat
+        keep = torch.rand(feat.shape, generator=generator,
+                          device=feat.device) >= p
+        return torch.where(keep, feat / (1 - p), torch.zeros_like(feat))
+
+    def forward(self, x: torch.Tensor, num_seg: int,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if x.ndim == 5:
             return self.fc(x.mean(dim=(1, 2, 3)))
-        feat = x.mean(dim=(1, 2))
-        if self.dropout_ratio:
-            feat = F.dropout(feat, self.dropout_ratio, self.training)
+        feat = self.dropout(x.mean(dim=(1, 2)), generator)
         score = self.fc(feat)
         score = score.reshape((-1, num_seg) + score.shape[1:])
         return self.consensus(score)[:, 0]
+
+    @staticmethod
+    def loss(cls_score: torch.Tensor,
+             labels: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Mean cross-entropy in ``promote_types(float32, dtype)``: bf16
+        logits promote, f64 stays f64."""
+        acc = torch.promote_types(torch.float32, cls_score.dtype)
+        return {'loss_cls': F.cross_entropy(cls_score.to(acc), labels)}

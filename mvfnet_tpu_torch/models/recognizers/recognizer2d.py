@@ -1,5 +1,10 @@
 """Recognizer2D (counterpart of ``mvfnet_tpu/models/recognizers/recognizer2d.py``).
 
+Train path: ``(B, S, H, W, C)`` folds to ``(B*S, ...)`` through the
+backbone in train mode, the head averages the scores over
+``S // temporal_pool`` segments and returns its cross-entropy loss for the
+flattened labels (the dropout mask from the caller's generator).
+
 Test path: every crop*clip*frame of a ``(B, S, H, W, C)`` channels-last
 video goes through the backbone as one batch; with ``fcn_testing`` the
 feature maps regroup into ``(clips*crops, T, h, w, C)`` volumes that the
@@ -7,7 +12,6 @@ head averages over (T, H, W); clip scores are then averaged per video as
 ``test_cfg['average_clips']`` says ('prob' = softmax then mean, 'score' =
 mean, None = per-clip scores). Params are fp32; the compute dtype is
 ``dtype`` (the config's ``compute_dtype``), or the params' dtype when None.
-The train path waits for a later slice.
 """
 
 from __future__ import annotations
@@ -101,11 +105,24 @@ class Recognizer2D(nn.Module):
         return self.backbone(imgs.to(self.compute_dtype).permute(0, 3, 1, 2))
 
     def forward(self, imgs: torch.Tensor, labels=None,
-                return_loss: bool = True):
+                return_loss: bool = True,
+                generator: Optional[torch.Generator] = None):
         if return_loss:
-            raise NotImplementedError(
-                'the train path of the port waits for a later slice')
+            return self.forward_train(imgs, labels, generator)
         return self.forward_test(imgs)
+
+    def forward_train(self, imgs: torch.Tensor, labels: torch.Tensor,
+                      generator: Optional[torch.Generator] = None
+                      ) -> Dict[str, torch.Tensor]:
+        # imgs: (B, S, H, W, C)
+        num_batch = imgs.shape[0]
+        imgs = imgs.reshape((-1,) + tuple(imgs.shape[2:]))
+        num_seg = imgs.shape[0] // num_batch
+        x = to_nhwc(self.extract_feat(imgs))           # (B*S, h, w, C)
+        temporal_pool = imgs.shape[0] // x.shape[0]
+        cls_score = self.cls_head(x, num_seg // temporal_pool,
+                                  generator=generator)
+        return self.cls_head.loss(cls_score, labels.reshape(-1))
 
     def forward_test(self, imgs: torch.Tensor) -> torch.Tensor:
         # imgs: (B, crops*clips*T, H, W, C), B is typically 1

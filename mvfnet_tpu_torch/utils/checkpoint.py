@@ -5,7 +5,8 @@
   port's ``state_dict`` in the reference torch vocabulary. It inverts the
   JAX importer's layout changes: HWIO conv kernels -> OIHW, ``(3, C)`` MVF
   taps -> Conv3d-shaped ``(C, 1, kT, kH, kW)``, Dense ``(in, out)`` ->
-  Linear ``(out, in)``, and the BN names.
+  Linear ``(out, in)``, and the BN names. ``jax_entries`` gives the same
+  mapping leaf by leaf, with each leaf's JAX path.
 - ``load_torch_state_dict``: a reference ``.pth`` -> ``{name: tensor}``.
 """
 
@@ -68,6 +69,20 @@ def _torch_entry(path: Tuple[str, ...], value: np.ndarray,
     raise KeyError(f'no torch name for JAX variable {"/".join(path)}')
 
 
+def jax_entries(variables: Dict[str, Any]
+                ) -> Iterator[Tuple[str, str, str, np.ndarray]]:
+    """``(collection, JAX path, port name, value in the port's layout)`` for
+    each leaf of the JAX package's recognizer variables; the path is
+    '/'-joined inside its collection, as optax's labels see it."""
+    leaves = [(coll, path, v) for coll in ('params', 'batch_stats')
+              for path, v in _leaves(variables.get(coll, {}))]
+    mvf_blocks = {'.'.join(_module_name(m) for m in path[:-2])
+                  for _, path, _ in leaves if 'MVF_0' in path}
+    for coll, path, value in leaves:
+        name, v = _torch_entry(path, value, mvf_blocks)
+        yield coll, '/'.join(path), name, v
+
+
 def state_dict_from_jax(variables: Dict[str, Any]
                         ) -> Dict[str, torch.Tensor]:
     """The port's ``state_dict`` for the JAX package's recognizer variables.
@@ -75,13 +90,8 @@ def state_dict_from_jax(variables: Dict[str, Any]
     Values keep their dtype; every BatchNorm also gets a zero
     ``num_batches_tracked``, so the result loads with ``strict=True``.
     """
-    leaves = [(coll, path, v) for coll in ('params', 'batch_stats')
-              for path, v in _leaves(variables.get(coll, {}))]
-    mvf_blocks = {'.'.join(_module_name(m) for m in path[:-2])
-                  for _, path, _ in leaves if 'MVF_0' in path}
     out: Dict[str, torch.Tensor] = {}
-    for _, path, value in leaves:
-        name, v = _torch_entry(path, value, mvf_blocks)
+    for _, _, name, v in jax_entries(variables):
         out[name] = torch.tensor(v)       # a copy: JAX arrays are read-only
         if name.endswith('.running_mean'):
             out[name[:-len('running_mean')] + 'num_batches_tracked'] = \

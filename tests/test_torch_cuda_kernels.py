@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions on the card,
+and a small train step that must not launch them.
 
 Every test here carries the ``cuda`` marker and skips without a GPU. This
 file imports neither JAX nor the JAX package, so it also runs on a machine
@@ -13,6 +14,9 @@ import numpy as np
 import pytest
 import torch
 
+from mvfnet_tpu_torch.engine.optim import build_lr_schedule, build_optimizer
+from mvfnet_tpu_torch.engine.train_step import make_eval_step, make_train_step
+from mvfnet_tpu_torch.models import build_recognizer
 from mvfnet_tpu_torch.ops import fused_block as fb
 
 pytestmark = pytest.mark.cuda
@@ -77,3 +81,46 @@ def test_fused_bottleneck_raises_on_what_it_does_not_take(cuda):
         fb.bottleneck_eval(x.transpose(1, 2), w1, b1, w2, b2, w3, b3)
     with pytest.raises(TypeError, match='weights must be in x.dtype'):
         fb.bottleneck_eval(x, w1.bfloat16(), b1, w2, b2, w3, b3)
+
+
+def test_train_steps_launch_no_fused_kernel_and_eval_does(cuda):
+    """Two bf16 train steps of a small R50+MVF on the card: finite metrics
+    and no fused launch; then eval of the trained model launches it."""
+    t, classes = 4, 10
+    model = build_recognizer(dict(
+        type='Recognizer2D',
+        backbone=dict(type='ResNet', depth=50, out_indices=(3,),
+                      norm_eval=False),
+        cls_head=dict(type='TSNClsHead', spatial_type='avg',
+                      dropout_ratio=0.5, in_channels=2048, init_std=0.01,
+                      num_classes=classes),
+        module_cfg=dict(type='MVF', n_segment=t, alpha=0.125,
+                        mvf_freq=(0, 0, 1, 1), mode='THW'),
+        dtype='bfloat16'), test_cfg=dict(average_clips=None))
+    model.init_weights(torch.Generator().manual_seed(0))
+    sched = build_lr_schedule(dict(policy='step', step=[10]), 0.01, 1, 1)
+    opt = build_optimizer(model, dict(type='SGD', lr=0.01, momentum=0.9,
+                                      weight_decay=1e-4, nesterov=True),
+                          sched, grad_clip=dict(max_norm=40))
+    norm = dict(mean=[123.675, 116.28, 103.53], std=[58.395, 57.12, 57.375],
+                to_rgb=True, device=True)
+    step = make_train_step(model, opt, sched, norm_cfg=norm)
+    rng = np.random.RandomState(0)
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    before = fb.bottleneck_eval_cuda.launches
+    for _ in range(2):
+        m = step(rng.randint(0, 256, (2, t, 64, 64, 3), dtype=np.uint8),
+                 rng.randint(0, classes, 2), gen)
+        assert torch.isfinite(m['loss']) and torch.isfinite(m['grad_norm'])
+        assert m['loss'].dtype == torch.float32
+    assert fb.bottleneck_eval_cuda.launches == before
+    assert model.backbone.conv1.weight.dtype == torch.float32
+    assert model.backbone.conv1.weight.grad.dtype == torch.float32
+
+    scores = make_eval_step(model, norm_cfg=norm)(
+        model, rng.randint(0, 256, (1, 2 * t, 64, 64, 3), dtype=np.uint8))
+    torch.cuda.synchronize()
+    assert scores.shape == (2, classes)
+    assert bool(torch.isfinite(scores).all())
+    # layer1.1-2 and layer2.1-3
+    assert fb.bottleneck_eval_cuda.launches == before + 5
