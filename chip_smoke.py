@@ -27,6 +27,19 @@ Phases, each of which exits non-zero on failure:
    training, one step from a copied state in bf16 against fp32 (TF32 off),
    and then one dense-test video of the trained model against its plain
    path (the fold cache must see the trained weights).
+5. data: prints the host's image libraries, cores and memory, writes a
+   rawframe dataset (8 videos x 300 JPEG frames of 455x256,
+   cv2.imwrite) and a random flagship checkpoint (.pth) to a temporary
+   directory, and runs the port's dense-test CLI in-process with
+   ``--fcn_testing``, once with the config's host ``Normalize`` (float32
+   frames uploaded) and once with ``Normalize(device=True)`` (uint8), each
+   as a warm-up pass, a timed pass and a profiled pass. Checks the pickled
+   scores (8 rows of 400, finite, summing to 1), the printed accuracies
+   against numpy, the CLI's scores against the eval step on the same
+   frames and the two cases against each other (within 1e-5), and 2 + 3
+   bf16 fused launches per video at the two shapes only; prints a ``data:``
+   line per case (decoder, host and loader rates, bytes uploaded, device
+   busy time and idle share).
 
 Prints the ``{"kernels": [...]}`` line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -76,6 +89,13 @@ TRAIN_WARMUP, TRAIN_STEPS = 2, 5
 ITERS_PER_EPOCH = 2500
 # ln 400 = 5.991: the first loss may lie 0.2 below it or 1.5 above it
 FIRST_LOSS = (5.79, 7.49)
+# the data phase: a rawframe dataset of DATA_VIDEOS videos of DATA_FRAMES
+# JPEG frames of DATA_HW (a 16:9 Kinetics frame after the short-edge-256
+# extraction), labels 0.. of 400 classes, driven through the port's CLI
+DATA_VIDEOS, DATA_FRAMES, DATA_HW = 8, 300, (256, 455)
+# CLI scores against the eval step on the same frames, and host against
+# device normalization: the same arithmetic, so at most rounding apart
+DATA_TOL = 1e-5
 KERNEL = dict(name='fused_bottleneck', route='cuda',
               source='mvfnet_tpu_torch/csrc/fused_bottleneck.cu',
               replaces='mvfnet_tpu/ops/fused_block.py:144')
@@ -252,10 +272,14 @@ def device_profile(fn):
     if not spans:
         return dict(wall_ms=wall_ms, note='the profiler saw no device events')
     by_kind, by_name, busy, end = {}, {}, 0.0, float('-inf')
+    copies = {}
     for s, e, name in spans:
         us = e - s
         by_kind[_kernel_kind(name)] = by_kind.get(_kernel_kind(name), 0) + us
         by_name[name[:80]] = by_name.get(name[:80], 0) + us
+        if name.startswith('Memcpy'):
+            n, t = copies.get(name, (0, 0.0))
+            copies[name] = (n + 1, t + us)
         busy += max(0.0, e - max(s, end))
         end = max(end, e)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
@@ -265,7 +289,8 @@ def device_profile(fn):
         idle_share=1 - busy / 1e3 / wall_ms,
         by_kind_ms={k: v / 1e3 for k, v in sorted(
             by_kind.items(), key=lambda kv: -kv[1])},
-        top_kernels_ms=[[n, v / 1e3] for n, v in top])
+        top_kernels_ms=[[n, v / 1e3] for n, v in top],
+        copies={k: dict(count=n, ms=t / 1e3) for k, (n, t) in copies.items()})
 
 
 def compare_with_plain(phase, step, model, video):
@@ -508,6 +533,293 @@ def phase_train():
             f'{expected}')
 
 
+def host_census():
+    """What the machine offers the host pipeline: the image libraries, the
+    JPEG headers and shared libraries, cores and memory."""
+    import ctypes.util
+    import importlib
+    out = {}
+    for mod in ('cv2', 'PIL', 'numpy', 'torchvision'):
+        try:
+            out[mod] = importlib.import_module(mod).__version__
+        except ImportError:
+            out[mod] = None
+    out['jpeglib.h'] = os.path.exists('/usr/include/jpeglib.h')
+    out['nvjpeg.h'] = os.path.exists('/usr/local/cuda/include/nvjpeg.h')
+    out['libjpeg'] = ctypes.util.find_library('jpeg')
+    out['libnvjpeg'] = ctypes.util.find_library('nvjpeg')
+    out['cpu_count'] = os.cpu_count()
+    out['mem_gib'] = (os.sysconf('SC_PAGE_SIZE')
+                      * os.sysconf('SC_PHYS_PAGES') / 2 ** 30)
+    return out
+
+
+def _synthetic_video(path, seed):
+    """DATA_FRAMES JPEGs of smooth random content that fades between two
+    coarse fields, with mid-frequency texture and mild noise (white noise
+    would encode at many times a real frame's size); their sizes."""
+    import cv2
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    h, w = DATA_HW
+    a, b = (rs.rand(6, 10, 3).astype(np.float32) * 255 for _ in range(2))
+    mid = cv2.resize((rs.randn(32, 57, 3) * 20).astype(np.float32), (w, h))
+    noise = [(rs.randn(h, w, 3) * 2).astype(np.float32) for _ in range(4)]
+    os.makedirs(path)
+    sizes = []
+    for t in range(DATA_FRAMES):
+        s = t / max(DATA_FRAMES - 1, 1)
+        img = cv2.resize(a * (1 - s) + b * s, (w, h),
+                         interpolation=cv2.INTER_CUBIC)
+        img = np.clip(img + mid + noise[t % 4], 0, 255).astype(np.uint8)
+        name = os.path.join(path, f'img_{t + 1:05}.jpg')
+        require(cv2.imwrite(name, img), f'cv2.imwrite failed for {name}')
+        sizes.append(os.path.getsize(name))
+    return sizes
+
+
+def write_dataset(root):
+    """The rawframe videos and their annotation file under ``root``; returns
+    the annotation file and the mean frame size in bytes."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(min(DATA_VIDEOS, os.cpu_count() or 1)) as pool:
+        sizes = list(pool.map(
+            lambda i: _synthetic_video(os.path.join(root, f'video_{i}'), i),
+            range(DATA_VIDEOS)))
+    ann = os.path.join(root, 'test_list.txt')
+    with open(ann, 'w') as f:
+        f.writelines(f'video_{i} {DATA_FRAMES} {i}\n'
+                     for i in range(DATA_VIDEOS))
+    return ann, statistics.mean(s for v in sizes for s in v)
+
+
+def write_config(root, ann, device_norm):
+    """A config that inherits the flagship and overrides the test split's
+    annotation file and data root and, with ``device_norm``, its
+    ``Normalize`` (the whole pipeline list, since lists replace)."""
+    import re
+    from mvfnet_tpu_torch.config import Config
+    test = dict(ann_file=ann, data_root=root)
+    if device_norm:
+        test['pipeline'] = [
+            dict(op, device=True) if op['type'] == 'Normalize' else dict(op)
+            for op in Config.fromfile(CONFIG).data['test']['pipeline']]
+    text = re.sub(r'\binf\b', "float('inf')",
+                  f'_base_ = {CONFIG!r}\ndata = dict(test={test!r})\n')
+    path = os.path.join(root, f'test_{int(device_norm)}.py')
+    with open(path, 'w') as f:
+        f.write(text)
+    return path
+
+
+def run_cli(config, ckpt, out):
+    """The port's CLI in-process, as a user runs the dense test; returns
+    what it printed."""
+    import contextlib
+    import io
+    from mvfnet_tpu_torch.tools import test_recognizer as cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main([config, ckpt, '--fcn_testing', '--videos_per_gpu', '1',
+                  '--out', out])
+    return buf.getvalue()
+
+
+class _TimedOp:
+    """A pipeline op that appends its ms per call to ``log[name]``."""
+
+    def __init__(self, op, log):
+        self.op, self.log = op, log
+
+    def __call__(self, results):
+        t0 = time.perf_counter()
+        out = self.op(results)
+        self.log.setdefault(type(self.op).__name__, []).append(
+            (time.perf_counter() - t0) * 1e3)
+        return out
+
+
+def numpy_accuracy(scores, labels):
+    """Top-1, top-5 and mean-class accuracy recomputed in numpy, with the
+    reference's confusion matrix over the labels and predictions seen."""
+    import numpy as np
+    scores, labels = np.asarray(scores), np.asarray(labels)
+    order = np.argsort(scores, axis=1)
+    top1 = float(np.mean(order[:, -1] == labels))
+    top5 = float(np.mean((order[:, -5:] == labels[:, None]).any(1)))
+    pred = scores.argmax(1)
+    accs = [float(np.mean(pred[labels == c] == c)) if (labels == c).any()
+            else 0.0 for c in np.unique(np.concatenate([pred, labels]))]
+    return top1, top5, float(np.mean(accs))
+
+
+def phase_data():
+    """The dense-test entry point on a rawframe dataset: the port's CLI with
+    host and with device normalization. Returns the fused kernel's launches
+    in each case's timed pass, by (dtype, N, H, W, Cin, Cm)."""
+    import pickle
+    import re
+    import tempfile
+
+    import cv2
+    import numpy as np
+    import torch
+    from mvfnet_tpu_torch.config import Config
+    from mvfnet_tpu_torch.data import (DataLoader, ShardedSampler,
+                                       build_dataset, default_collate,
+                                       device_norm_cfg)
+    from mvfnet_tpu_torch.engine import eval as eval_mod
+    from mvfnet_tpu_torch.engine import prefetch
+    from mvfnet_tpu_torch.engine.train_step import make_eval_step
+    from mvfnet_tpu_torch.ops import fused_block as fb
+    from mvfnet_tpu_torch.tools import test_recognizer as cli
+
+    expected = {('bfloat16',) + shape + (cm,): per_video * DATA_VIDEOS
+                for _, shape, cm, per_video in FUSED_SHAPES if per_video}
+    launches, rows = {}, {}
+    print('host: ' + json.dumps(host_census()))
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        ann, frame_bytes = write_dataset(root)
+        print(f'data set: {DATA_VIDEOS} videos x {DATA_FRAMES} frames of '
+              f'{DATA_HW[1]}x{DATA_HW[0]}, mean JPEG {frame_bytes:.0f} bytes, '
+              f'written in {time.perf_counter() - t0:.3f} s with cv2 '
+              f'{cv2.__version__}')
+        ckpt = os.path.join(root, 'mvf_r50_random.pth')
+        flagship = Config.fromfile(CONFIG)
+        model = cli.build_model(flagship, True, 'prob')
+        model.init_weights(torch.Generator().manual_seed(0),
+                           randomize_bn=True)
+        torch.save(model.state_dict(), ckpt)
+        model.to('cuda')
+        labels = list(range(DATA_VIDEOS))
+
+        for case, device_norm in (('host_norm', False), ('device_norm', True)):
+            config = write_config(root, ann, device_norm)
+            out = os.path.join(root, f'scores_{case}.pkl')
+            run_cli(config, ckpt, out)                       # warm-up pass
+            torch.cuda.synchronize()
+            fb.bottleneck_eval_cuda.launches = 0
+            fb.bottleneck_eval_cuda.launches_by_shape.clear()
+            # the timed pass records the eval loop's time and keeps the
+            # stager that uploads its batches, for its byte counters
+            evaluate, eval_s = eval_mod.evaluate_dataset, []
+            stager_cls, stagers = prefetch.PinnedStager, []
+
+            def timed_evaluate(*args, **kwargs):
+                t1 = time.perf_counter()
+                scores = evaluate(*args, **kwargs)   # on the host: synced
+                eval_s.append(time.perf_counter() - t1)
+                return scores
+
+            def kept_stager(device):
+                stagers.append(stager_cls(device))
+                return stagers[-1]
+            eval_mod.evaluate_dataset = timed_evaluate
+            prefetch.PinnedStager = kept_stager
+            t0 = time.perf_counter()
+            try:
+                text = run_cli(config, ckpt, out)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+            finally:
+                eval_mod.evaluate_dataset = evaluate
+                prefetch.PinnedStager = stager_cls
+            require(len(stagers) == 1, f'{case}: {len(stagers)} stagers')
+            stager = stagers[0]
+            launches[case] = dict(fb.bottleneck_eval_cuda.launches_by_shape)
+            with open(out, 'rb') as f:
+                rows[case] = pickle.load(f)
+
+            require(len(rows[case]) == DATA_VIDEOS and all(
+                r.shape == (400,) for r in rows[case]),
+                f'{case}: scores {[r.shape for r in rows[case]]}')
+            got = np.stack(rows[case])
+            require(bool(np.isfinite(got).all()), f'{case}: non-finite')
+            require(bool((np.abs(got.sum(1) - 1) <= 1e-3).all()),
+                    f'{case}: class probabilities sum to {got.sum(1)}')
+            require(launches[case] == expected,
+                    f'{case}: fused kernel launches {launches[case]}, '
+                    f'expected {expected}')
+            require(fb.bottleneck_eval_cuda.launches
+                    == sum(expected.values()),
+                    f'{case}: fused kernel launched '
+                    f'{fb.bottleneck_eval_cuda.launches} times in all')
+            printed = dict(re.findall(r'^(Top-1|Top-5|Mean Class) Accuracy '
+                                      r'= (\d+\.\d\d)$', text, re.M))
+            want = numpy_accuracy(got, labels)
+            require(printed == {k: f'{v * 100:.02f}' for k, v in zip(
+                ('Top-1', 'Top-5', 'Mean Class'), want)},
+                f'{case}: printed {printed}, numpy {want}')
+
+            # the same frames straight through the eval step, each
+            # pipeline op, the collate and the pinned copy timed
+            cfg = Config.fromfile(config)
+            dataset = build_dataset(dict(cfg.data['test']))
+            decoder = dataset.pipeline.transforms[1].decoder
+            step = make_eval_step(model, norm_cfg=device_norm_cfg(
+                cfg.data['test']['pipeline']))
+            op_ms, item_ms, direct, pinned = {}, [], [], None
+            ops = dataset.pipeline.transforms
+            dataset.pipeline.transforms = [_TimedOp(t, op_ms) for t in ops]
+            for i in range(DATA_VIDEOS):
+                t1 = time.perf_counter()
+                sample = dataset[i]
+                item_ms.append((time.perf_counter() - t1) * 1e3)
+                t1 = time.perf_counter()
+                batch = default_collate([sample])['img_group']
+                op_ms.setdefault('collate', []).append(
+                    (time.perf_counter() - t1) * 1e3)
+                if pinned is None:
+                    pinned = torch.empty(batch.shape, pin_memory=True,
+                                         dtype=torch.from_numpy(batch).dtype)
+                t1 = time.perf_counter()
+                pinned.numpy()[...] = batch
+                op_ms.setdefault('pinned_copy', []).append(
+                    (time.perf_counter() - t1) * 1e3)
+                direct.append(step(model, batch).float().cpu().numpy()[0])
+            dataset.pipeline.transforms = ops
+            err = float(np.abs(got - np.stack(direct)).max())
+            require(err <= DATA_TOL, f'{case}: CLI scores vs eval step: max '
+                                     f'abs err {err} > {DATA_TOL}')
+            loader = DataLoader(dataset, 1, ShardedSampler(
+                len(dataset), shuffle=False),
+                num_workers=cfg.data['workers_per_gpu'])
+            t1 = time.perf_counter()
+            n = sum(len(b['img_group']) for b in loader)
+            loader_s = time.perf_counter() - t1
+            prof = device_profile(lambda: run_cli(config, ckpt, out))
+            require('busy_ms' in prof, f'{case} profile: {prof}')
+            htod = {k: v for k, v in prof['copies'].items() if 'HtoD' in k}
+            print('data: ' + json.dumps(dict(
+                case=case, decoder=decoder,
+                cpu_count=os.cpu_count(), videos=DATA_VIDEOS,
+                clips_per_video=VIEWS, pass_s=secs, eval_s=eval_s[0],
+                videos_per_s=DATA_VIDEOS / secs,
+                clips_per_s=DATA_VIDEOS * VIEWS / secs,
+                item_ms_one_thread=statistics.median(item_ms),
+                host_ms_by_op={k: statistics.median(v)
+                               for k, v in op_ms.items()},
+                loader_videos_per_s=n / loader_s,
+                loader_workers=cfg.data['workers_per_gpu'],
+                bytes_uploaded_per_video=stager.bytes_uploaded
+                / stager.uploads,
+                upload_dtype=str(sample['img_group'].dtype),
+                htod_copies=htod, device_busy_ms=prof['busy_ms'],
+                device_idle_share=prof['idle_share'],
+                profiled_pass_ms=prof['wall_ms'],
+                fused_launches=sum(launches[case].values()),
+                cli_vs_step_max_abs_err=err, card=card_line())))
+            print(f'data profile {case}: ' + json.dumps(prof))
+            del dataset, loader, step, pinned
+    err = float(np.abs(np.stack(rows['host_norm'])
+                       - np.stack(rows['device_norm'])).max())
+    print(f'data compare: host vs device normalization max abs err {err}')
+    require(err <= DATA_TOL, f'host vs device normalization: max abs err '
+                             f'{err} > {DATA_TOL}')
+    return launches
+
+
 def main():
     try:
         import torch
@@ -533,10 +845,13 @@ def main():
         phase_build()
         records = phase_kernel()
         launches = phase_slice()
-        for r in records:
-            r['launches'] = launches.get(
-                (r['dtype'],) + tuple(r['shape']), 0)
         phase_train()
+        data_launches = phase_data()
+        for r in records:
+            key = (r['dtype'],) + tuple(r['shape'])
+            r['launches'] = launches.get(key, 0)
+            r['launches_cli'] = {case: n.get(key, 0)
+                                 for case, n in data_launches.items()}
     except SmokeFailure as e:
         print(f'chip_smoke: FAILED: {e}', file=sys.stderr)
         return 1

@@ -1,0 +1,114 @@
+"""Datasets: annotation parsing + per-sample pipeline execution (counterpart
+of ``mvfnet_tpu/data/datasets.py``).
+
+Reference: ``codes/datasets/{base,rawframes_dataset,pkl_dataset}.py``. No
+torch Dataset dependency: these are plain map-style objects consumed by the
+threaded loader.
+
+Per-sample determinism: ``__getitem__`` seeds a ``numpy.random.Generator``
+from ``(base_seed, epoch, idx)`` and passes it through the pipeline as
+``results['rng']``, so augmentation is reproducible and worker-order
+independent (the reference relied on global RNG state). ``VideoDataset`` is
+not ported yet (``ROADMAP.md``).
+"""
+
+from __future__ import annotations
+
+import copy
+import os.path as osp
+from abc import ABC, abstractmethod
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+
+from .builder import DATASETS
+from .pipeline import Compose
+
+
+class BaseDataset(ABC):
+    def __init__(self, ann_file: str, pipeline, data_root: Optional[str] = None,
+                 test_mode: bool = False, modality: Optional[str] = 'RGB',
+                 seed: int = 0):
+        self.ann_file = ann_file
+        self.data_root = data_root
+        self.test_mode = test_mode
+        self.pipeline = Compose(pipeline)
+        self.video_infos = self.load_annotations()
+        self.modality = modality
+        self.seed = seed
+        self.epoch = 0
+
+    def set_epoch(self, epoch: int) -> None:
+        self.epoch = epoch
+
+    def _make_rng(self, idx: int) -> np.random.Generator:
+        return np.random.default_rng(
+            np.random.SeedSequence([self.seed, self.epoch, idx]))
+
+    @abstractmethod
+    def load_annotations(self) -> List[Dict[str, Any]]:
+        ...
+
+    def prepare_frames(self, idx: int):
+        results = copy.deepcopy(self.video_infos[idx])
+        results['modality'] = self.modality
+        results['test_mode'] = self.test_mode
+        results['rng'] = self._make_rng(idx)
+        results['vid_idx'] = idx
+        return self.pipeline(results)
+
+    def __len__(self) -> int:
+        return len(self.video_infos)
+
+    def __getitem__(self, idx: int):
+        return self.prepare_frames(idx)
+
+
+def _frame_list(ann_file: str, data_root: Optional[str]
+                ) -> List[Dict[str, Any]]:
+    """Ann lines ``path total_frames label``; blank lines skipped."""
+    video_infos = []
+    with open(ann_file) as fin:
+        for line in fin:
+            if not line.strip():
+                continue
+            path, total_frames, label = line.split()
+            if data_root is not None:
+                path = osp.join(data_root, path)
+            video_infos.append(dict(filename=path,
+                                    total_frames=int(total_frames),
+                                    label=int(label)))
+    return video_infos
+
+
+@DATASETS.register_module
+class RawFramesDataset(BaseDataset):
+    """Ann lines: ``dir total_frames label`` (reference
+    ``rawframes_dataset.py:10-69``)."""
+
+    def __init__(self, ann_file, pipeline, data_root=None, test_mode=False,
+                 filename_tmpl='img_{:05}.jpg', modality='RGB', seed=0):
+        super().__init__(ann_file, pipeline, data_root, test_mode, modality,
+                         seed)
+        self.filename_tmpl = filename_tmpl
+
+    def load_annotations(self):
+        return _frame_list(self.ann_file, self.data_root)
+
+    def prepare_frames(self, idx):
+        results = copy.deepcopy(self.video_infos[idx])
+        results['filename_tmpl'] = self.filename_tmpl
+        results['modality'] = self.modality
+        results['test_mode'] = self.test_mode
+        results['rng'] = self._make_rng(idx)
+        results['vid_idx'] = idx
+        return self.pipeline(results)
+
+
+@DATASETS.register_module
+class PklDataset(BaseDataset):
+    """Ann lines: ``file.pkl total_frames label``: frames pre-packed as
+    pickled JPEG-bytes lists (reference ``pkl_dataset.py:9-42``)."""
+
+    def load_annotations(self):
+        return _frame_list(self.ann_file, self.data_root)

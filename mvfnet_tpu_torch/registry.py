@@ -2,7 +2,7 @@
 
 The port's own copy of ``mvfnet_tpu/registry.py``: components register under
 a string name and are instantiated from ``dict(type='Name', **kwargs)``
-nodes. Entries here are ``torch.nn.Module`` classes.
+nodes. Entries here are classes: models, datasets and pipeline ops.
 """
 
 from __future__ import annotations

@@ -1,1 +1,2 @@
-"""Measurement tools for the port's kernels; they run on the card only."""
+"""Command-line tools of the port: the dense-test CLI and, on the card
+only, the kernel measurements."""

@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
-and a small train step that must not launch them.
+and a small train step that must not launch them, and the eval loop's
+pinned-memory prefetch.
 
 Every test here carries the ``cuda`` marker and skips without a GPU. This
 file imports neither JAX nor the JAX package, so it also runs on a machine
@@ -124,3 +125,26 @@ def test_train_steps_launch_no_fused_kernel_and_eval_does(cuda):
     assert bool(torch.isfinite(scores).all())
     # layer1.1-2 and layer2.1-3
     assert fb.bottleneck_eval_cuda.launches == before + 5
+
+
+def test_prefetch_stages_through_two_pinned_buffers(cuda):
+    """Batches reach the card intact, through two pinned buffers reused in
+    turn (a smaller last batch uses their leading rows; another frame
+    shape reallocates them), and the counters add up."""
+    from mvfnet_tpu_torch.engine.prefetch import (PinnedStager,
+                                                  prefetch_to_device)
+    rng = np.random.RandomState(0)
+    arrays = [rng.randint(0, 256, (n, 5, 7, 3), dtype=np.uint8)
+              for n in (3, 3, 3, 2)] + [rng.rand(2, 4).astype(np.float32)]
+    stager = PinnedStager(torch.device('cuda'))
+    got, bufs = [], []
+    for t in prefetch_to_device(arrays, 'cuda', stager):
+        assert t.device.type == 'cuda'
+        bufs.append(tuple(b.data_ptr() for b in stager._bufs))
+        got.append((t + 0).cpu().numpy())   # work on the current stream
+    for g, a in zip(got, arrays):
+        np.testing.assert_array_equal(g, a)
+    assert all(b.is_pinned() for b in stager._bufs)
+    assert len(set(bufs[:3])) == 1 and bufs[3] != bufs[0]
+    assert stager.uploads == len(arrays)
+    assert stager.bytes_uploaded == sum(a.nbytes for a in arrays)
