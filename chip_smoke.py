@@ -9,8 +9,8 @@ Phases, each of which exits non-zero on failure:
    with nvcc and prints ptxas's register report.
 2. kernel: holds each kernel against its plain PyTorch version on the card,
    in float32 (TF32 off) and bfloat16, at the unit-test shapes and at the
-   shapes the dense-test path gives it, and times kernel, plain version and
-   the bound with CUDA events.
+   shapes the dense-test path and the train CLI's evaluation give it, and
+   times kernel, plain version and the bound with CUDA events.
 3. slice: builds MVFNet-R50 8x8 from its config file through the port's
    entry points (seeded random weights, bf16 compute), answers three
    dense-test requests of (1, 240, 256, 256, 3) uint8 frames, checks the
@@ -40,6 +40,22 @@ Phases, each of which exits non-zero on failure:
    bf16 fused launches per video at the two shapes only; prints a ``data:``
    line per case (decoder, host and loader rates, bytes uploaded, device
    busy time and idle share).
+6. train CLI: on the same videos (each listed 6 times in a train split, 48
+   entries; once in a val split) runs the port's train CLI in-process on
+   a config that inherits the flagship (2 epochs of 4 iterations of
+   12 x 8 x 224^2, bf16, the recipe's SGD and clip at 40, a checkpoint, a
+   log line per iteration and an evaluation after each epoch), with the
+   config's host ``Normalize`` and with ``Normalize(device=True)``. Checks
+   finite losses, the first near ln 400, the checkpoints and ``train.log``,
+   that ``latest.pth`` imports with an empty report into a model equal to
+   the trained one, 2 + 3 bf16 fused launches per val video at the
+   evaluation's two shapes and none in the train steps, the logged top-1/5
+   against numpy on the evaluations' scores, one val video of the trained
+   model against its plain path, and a run resumed from ``epoch_1.pth``
+   against epoch 2 of the unbroken run; then profiles one more epoch and
+   times the train loader and its ops; prints a ``train_cli:`` line per
+   case (s/iter, clips/s, loader rate, bytes per iteration, device busy
+   time and idle share, fused launches by shape).
 
 Prints the ``{"kernels": [...]}`` line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -76,7 +92,12 @@ FUSED_SHAPES = [
     ('short_ragged', (2, 3, 9, 192), 128, 0),
     ('layer1', (240, 64, 64, 256), 64, 2),
     ('layer2', (240, 32, 32, 512), 128, 3),
+    ('val_layer1', (8, 56, 56, 256), 64, 0),
+    ('val_layer2', (8, 28, 28, 512), 128, 0),
 ]
+# the last two are the train CLI's mid-train evaluation (one clip of 8
+# frames at a 224^2 centre crop); their launches per val video
+VAL_LAUNCHES = {'val_layer1': 2, 'val_layer2': 3}
 TIMED_RUNS = 25
 VIDEOS = 3
 VIEWS, CROP = 30, 256       # a dense-test video: 3 crops x 10 clips of 256^2
@@ -96,6 +117,14 @@ DATA_VIDEOS, DATA_FRAMES, DATA_HW = 8, 300, (256, 455)
 # CLI scores against the eval step on the same frames, and host against
 # device normalization: the same arithmetic, so at most rounding apart
 DATA_TOL = 1e-5
+# the train CLI phase: the data phase's videos listed TRAIN_REPEAT times
+# in the train split (48 entries: 4 iterations of 12 an epoch) and once in
+# the val split, TRAIN_EPOCHS epochs with a checkpoint, a log line and an
+# evaluation after each; a run resumed from epoch 1 repeats epoch 2's
+# losses within RESUME_TOL relative (cuDNN's bf16 backward is not bitwise
+# deterministic; the CPU test checks equality)
+TRAIN_REPEAT, TRAIN_EPOCHS = 6, 2
+RESUME_TOL = 2e-2
 KERNEL = dict(name='fused_bottleneck', route='cuda',
               source='mvfnet_tpu_torch/csrc/fused_bottleneck.cu',
               replaces='mvfnet_tpu/ops/fused_block.py:144')
@@ -653,15 +682,14 @@ def numpy_accuracy(scores, labels):
     return top1, top5, float(np.mean(accs))
 
 
-def phase_data():
-    """The dense-test entry point on a rawframe dataset: the port's CLI with
-    host and with device normalization. Returns the fused kernel's launches
-    in each case's timed pass, by (dtype, N, H, W, Cin, Cm)."""
+def phase_data(root, ann):
+    """The dense-test entry point on the rawframe dataset under ``root``
+    (annotation file ``ann``): the port's CLI with host and with device
+    normalization. Returns the fused kernel's launches in each case's timed
+    pass, by (dtype, N, H, W, Cin, Cm)."""
     import pickle
     import re
-    import tempfile
 
-    import cv2
     import numpy as np
     import torch
     from mvfnet_tpu_torch.config import Config
@@ -677,6 +705,365 @@ def phase_data():
     expected = {('bfloat16',) + shape + (cm,): per_video * DATA_VIDEOS
                 for _, shape, cm, per_video in FUSED_SHAPES if per_video}
     launches, rows = {}, {}
+    ckpt = os.path.join(root, 'mvf_r50_random.pth')
+    flagship = Config.fromfile(CONFIG)
+    model = cli.build_model(flagship, True, 'prob')
+    model.init_weights(torch.Generator().manual_seed(0),
+                       randomize_bn=True)
+    torch.save(model.state_dict(), ckpt)
+    model.to('cuda')
+    labels = list(range(DATA_VIDEOS))
+
+    for case, device_norm in (('host_norm', False), ('device_norm', True)):
+        config = write_config(root, ann, device_norm)
+        out = os.path.join(root, f'scores_{case}.pkl')
+        run_cli(config, ckpt, out)                       # warm-up pass
+        torch.cuda.synchronize()
+        fb.bottleneck_eval_cuda.launches = 0
+        fb.bottleneck_eval_cuda.launches_by_shape.clear()
+        # the timed pass records the eval loop's time and keeps the
+        # stager that uploads its batches, for its byte counters
+        evaluate, eval_s = eval_mod.evaluate_dataset, []
+        stager_cls, stagers = prefetch.PinnedStager, []
+
+        def timed_evaluate(*args, **kwargs):
+            t1 = time.perf_counter()
+            scores = evaluate(*args, **kwargs)   # on the host: synced
+            eval_s.append(time.perf_counter() - t1)
+            return scores
+
+        def kept_stager(device):
+            stagers.append(stager_cls(device))
+            return stagers[-1]
+        eval_mod.evaluate_dataset = timed_evaluate
+        prefetch.PinnedStager = kept_stager
+        t0 = time.perf_counter()
+        try:
+            text = run_cli(config, ckpt, out)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        finally:
+            eval_mod.evaluate_dataset = evaluate
+            prefetch.PinnedStager = stager_cls
+        require(len(stagers) == 1, f'{case}: {len(stagers)} stagers')
+        stager = stagers[0]
+        launches[case] = dict(fb.bottleneck_eval_cuda.launches_by_shape)
+        with open(out, 'rb') as f:
+            rows[case] = pickle.load(f)
+
+        require(len(rows[case]) == DATA_VIDEOS and all(
+            r.shape == (400,) for r in rows[case]),
+            f'{case}: scores {[r.shape for r in rows[case]]}')
+        got = np.stack(rows[case])
+        require(bool(np.isfinite(got).all()), f'{case}: non-finite')
+        require(bool((np.abs(got.sum(1) - 1) <= 1e-3).all()),
+                f'{case}: class probabilities sum to {got.sum(1)}')
+        require(launches[case] == expected,
+                f'{case}: fused kernel launches {launches[case]}, '
+                f'expected {expected}')
+        require(fb.bottleneck_eval_cuda.launches
+                == sum(expected.values()),
+                f'{case}: fused kernel launched '
+                f'{fb.bottleneck_eval_cuda.launches} times in all')
+        printed = dict(re.findall(r'^(Top-1|Top-5|Mean Class) Accuracy '
+                                  r'= (\d+\.\d\d)$', text, re.M))
+        want = numpy_accuracy(got, labels)
+        require(printed == {k: f'{v * 100:.02f}' for k, v in zip(
+            ('Top-1', 'Top-5', 'Mean Class'), want)},
+            f'{case}: printed {printed}, numpy {want}')
+
+        # the same frames straight through the eval step, each
+        # pipeline op, the collate and the pinned copy timed
+        cfg = Config.fromfile(config)
+        dataset = build_dataset(dict(cfg.data['test']))
+        decoder = dataset.pipeline.transforms[1].decoder
+        step = make_eval_step(model, norm_cfg=device_norm_cfg(
+            cfg.data['test']['pipeline']))
+        op_ms, item_ms, direct, pinned = {}, [], [], None
+        ops = dataset.pipeline.transforms
+        dataset.pipeline.transforms = [_TimedOp(t, op_ms) for t in ops]
+        for i in range(DATA_VIDEOS):
+            t1 = time.perf_counter()
+            sample = dataset[i]
+            item_ms.append((time.perf_counter() - t1) * 1e3)
+            t1 = time.perf_counter()
+            batch = default_collate([sample])['img_group']
+            op_ms.setdefault('collate', []).append(
+                (time.perf_counter() - t1) * 1e3)
+            if pinned is None:
+                pinned = torch.empty(batch.shape, pin_memory=True,
+                                     dtype=torch.from_numpy(batch).dtype)
+            t1 = time.perf_counter()
+            pinned.numpy()[...] = batch
+            op_ms.setdefault('pinned_copy', []).append(
+                (time.perf_counter() - t1) * 1e3)
+            direct.append(step(model, batch).float().cpu().numpy()[0])
+        dataset.pipeline.transforms = ops
+        err = float(np.abs(got - np.stack(direct)).max())
+        require(err <= DATA_TOL, f'{case}: CLI scores vs eval step: max '
+                                 f'abs err {err} > {DATA_TOL}')
+        loader = DataLoader(dataset, 1, ShardedSampler(
+            len(dataset), shuffle=False),
+            num_workers=cfg.data['workers_per_gpu'])
+        t1 = time.perf_counter()
+        n = sum(len(b['img_group']) for b in loader)
+        loader_s = time.perf_counter() - t1
+        prof = device_profile(lambda: run_cli(config, ckpt, out))
+        require('busy_ms' in prof, f'{case} profile: {prof}')
+        htod = {k: v for k, v in prof['copies'].items() if 'HtoD' in k}
+        print('data: ' + json.dumps(dict(
+            case=case, decoder=decoder,
+            cpu_count=os.cpu_count(), videos=DATA_VIDEOS,
+            clips_per_video=VIEWS, pass_s=secs, eval_s=eval_s[0],
+            videos_per_s=DATA_VIDEOS / secs,
+            clips_per_s=DATA_VIDEOS * VIEWS / secs,
+            item_ms_one_thread=statistics.median(item_ms),
+            host_ms_by_op={k: statistics.median(v)
+                           for k, v in op_ms.items()},
+            loader_videos_per_s=n / loader_s,
+            loader_workers=cfg.data['workers_per_gpu'],
+            bytes_uploaded_per_video=stager.bytes_uploaded
+            / stager.uploads,
+            upload_dtype=str(sample['img_group'].dtype),
+            htod_copies=htod, device_busy_ms=prof['busy_ms'],
+            device_idle_share=prof['idle_share'],
+            profiled_pass_ms=prof['wall_ms'],
+            fused_launches=sum(launches[case].values()),
+            cli_vs_step_max_abs_err=err, card=card_line())))
+        print(f'data profile {case}: ' + json.dumps(prof))
+        del dataset, loader, step, pinned
+    err = float(np.abs(np.stack(rows['host_norm'])
+                       - np.stack(rows['device_norm'])).max())
+    print(f'data compare: host vs device normalization max abs err {err}')
+    require(err <= DATA_TOL, f'host vs device normalization: max abs err '
+                             f'{err} > {DATA_TOL}')
+    return launches
+
+
+def write_train_config(root, device_norm):
+    """A config that inherits the flagship and overrides the train and val
+    splits' annotation files and data root (with ``device_norm``, their
+    ``Normalize``), the epochs and the hooks' intervals; its path."""
+    import re
+    from mvfnet_tpu_torch.config import Config
+    flagship = Config.fromfile(CONFIG)
+    train_ann = os.path.join(root, 'train_list.txt')
+    with open(train_ann, 'w') as f:
+        f.writelines(f'video_{i} {DATA_FRAMES} {i}\n'
+                     for _ in range(TRAIN_REPEAT) for i in range(DATA_VIDEOS))
+    data = dict(train=dict(ann_file=train_ann, data_root=root),
+                val=dict(ann_file=os.path.join(root, 'test_list.txt'),
+                         data_root=root))
+    if device_norm:
+        for split in data:
+            data[split]['pipeline'] = [
+                dict(op, device=True) if op['type'] == 'Normalize'
+                else dict(op) for op in flagship.data[split]['pipeline']]
+    text = re.sub(r'\binf\b', "float('inf')", '\n'.join([
+        f'_base_ = {CONFIG!r}', f'data = dict(**{data!r})',
+        f'total_epochs = {TRAIN_EPOCHS}', 'resume_from = None',
+        'checkpoint_config = dict(interval=1)',
+        'log_config = dict(interval=1)', 'eval_interval = 1', '']))
+    path = os.path.join(root, f'train_{int(device_norm)}.py')
+    with open(path, 'w') as f:
+        f.write(text)
+    return path
+
+
+_LOG_ITER = (r'Epoch \[(\d+)\]\[(\d+)/(\d+)\] lr: (\S+), time: (\S+)s/iter, '
+             r'loss_cls: (\S+), loss: (\S+), grad_norm: (\S+)$')
+
+
+def train_log(work_dir):
+    """The iteration lines of ``work_dir/train.log`` as dicts, and the
+    evaluation lines as {(epoch, k): accuracy text}."""
+    import re
+    with open(os.path.join(work_dir, 'train.log')) as f:
+        text = f.read()
+    iters = [dict(epoch=int(e), iter=int(i), lr=float(lr), s=float(t),
+                  loss=float(loss), grad_norm=float(g))
+             for e, i, _, lr, t, _, loss, g in re.findall(_LOG_ITER, text,
+                                                          re.M)]
+    evals = {(int(e), int(k)): a for e, k, a in re.findall(
+        r'Eval epoch (\d+): top-(\d) acc: (\S+)$', text, re.M)}
+    return iters, evals
+
+
+def phase_train_cli(root):
+    """The train entry point on the rawframe dataset under ``root``: the
+    port's train CLI in-process with host and with device normalization,
+    a resumed run, one profiled epoch. Returns the fused kernel's launches
+    in each case's run, by (dtype, N, H, W, Cin, Cm)."""
+    import math
+
+    import numpy as np
+    import torch
+    from mvfnet_tpu_torch.config import Config
+    from mvfnet_tpu_torch.data import (DataLoader, ShardedSampler,
+                                       build_dataset, device_norm_cfg)
+    from mvfnet_tpu_torch.engine.train_step import make_eval_step
+    from mvfnet_tpu_torch.models import build_recognizer
+    from mvfnet_tpu_torch.ops import fused_block as fb
+    from mvfnet_tpu_torch.tools import train_recognizer as cli
+    from mvfnet_tpu_torch.utils.checkpoint import (import_torch_state_dict,
+                                                   load_torch_state_dict)
+
+    shapes = {name: ('bfloat16',) + shape + (cm,)
+              for name, shape, cm, _ in FUSED_SHAPES}
+    expected = {shapes[name]: n * DATA_VIDEOS * TRAIN_EPOCHS
+                for name, n in VAL_LAUNCHES.items()}
+    launches = {}
+    for case, device_norm in (('host_norm', False), ('device_norm', True)):
+        config = write_train_config(root, device_norm)
+        work = os.path.join(root, f'train_{case}')
+        fb.bottleneck_eval_cuda.launches = 0
+        fb.bottleneck_eval_cuda.launches_by_shape.clear()
+        t0 = time.perf_counter()
+        loop = cli.main([config, '--work_dir', work, '--validate'])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches[case] = dict(fb.bottleneck_eval_cuda.launches_by_shape)
+        iters, evals = train_log(work)
+        losses = [r['loss'] for r in iters]
+        n_iter = TRAIN_EPOCHS * loop.iters_per_epoch
+        require(loop.iters_per_epoch == DATA_VIDEOS * TRAIN_REPEAT
+                // loop.loader.batch_size,
+                f'{case}: {loop.iters_per_epoch} iterations an epoch')
+        require(len(iters) == n_iter == loop.step,
+                f'{case}: {len(iters)} log lines, {loop.step} steps')
+        require(all(math.isfinite(v) for r in iters for v in r.values()),
+                f'{case}: non-finite train metrics {iters}')
+        require(FIRST_LOSS[0] <= losses[0] <= FIRST_LOSS[1],
+                f'{case}: first loss {losses[0]} outside {FIRST_LOSS}')
+        for name in [f'epoch_{e + 1}.pth' for e in range(TRAIN_EPOCHS)] \
+                + ['latest.pth', 'train.log']:
+            require(os.path.exists(os.path.join(work, name)),
+                    f'{case}: {name} not written')
+        require(launches[case] == expected,
+                f'{case}: fused kernel launches {launches[case]}, expected '
+                f'{expected} (none in the train steps)')
+        require(fb.bottleneck_eval_cuda.launches == sum(expected.values()),
+                f'{case}: fused kernel launched '
+                f'{fb.bottleneck_eval_cuda.launches} times in all')
+
+        # the log's accuracies against numpy on the evaluations' scores
+        cfg = Config.fromfile(config)
+        val = build_dataset(dict(cfg.data['val']))
+        labels = [info['label'] for info in val.video_infos]
+        require([e['epoch'] for e in loop.eval_history]
+                 == list(range(1, TRAIN_EPOCHS + 1)),
+                 f'{case}: evaluations {loop.eval_history}')
+        for e in loop.eval_history:
+            scores = np.asarray(e['scores'])
+            require(scores.shape == (DATA_VIDEOS, 400)
+                    and bool(np.isfinite(scores).all()),
+                    f'{case}: eval scores {scores.shape}')
+            top1, top5, _ = numpy_accuracy(scores, labels)
+            require(evals.get((e['epoch'], 1)) == f'{top1:.4f}'
+                    and evals.get((e['epoch'], 5)) == f'{top5:.4f}',
+                    f'{case}: logged accuracies {evals}, numpy '
+                    f'{top1} {top5} at epoch {e["epoch"]}')
+
+        # latest.pth holds the trained model, every key
+        model = loop.model
+        fresh = build_recognizer(dict(cfg.model, dtype=cfg.compute_dtype))
+        report = import_torch_state_dict(
+            fresh, load_torch_state_dict(os.path.join(work, 'latest.pth')))
+        require(report['missing'] == report['unexpected']
+                == report['mismatched'] == [],
+                f'{case}: latest.pth import report {report}')
+        trained = model.state_dict()
+        differ = [k for k, v in fresh.state_dict().items()
+                  if not torch.equal(v, trained[k].cpu())
+                  and not k.endswith('num_batches_tracked')]
+        require(not differ, f'{case}: latest.pth differs at {differ[:5]}')
+
+        # one val video of the trained model against its plain path
+        step = make_eval_step(model, norm_cfg=device_norm_cfg(
+            cfg.data['val']['pipeline']))
+        video = np.asarray(val[0]['img_group'])[None]
+        got = compare_with_plain(f'train_cli {case}', step, model, video)
+        want = {shapes[name]: n for name, n in VAL_LAUNCHES.items()}
+        require(got == want, f'{case}: trained model launches {got}, '
+                             f'expected {want}')
+
+        # a run resumed from epoch 1 repeats epoch 2's losses
+        resumed = os.path.join(root, f'resumed_{case}')
+        again = cli.main([config, '--work_dir', resumed, '--resume_from',
+                          os.path.join(work, 'epoch_1.pth')])
+        tail, _ = train_log(resumed)
+        per_epoch = loop.iters_per_epoch
+        rel = [abs(a['loss'] - b['loss']) / abs(b['loss'])
+               for a, b in zip(tail, iters[per_epoch:])]
+        require(again.step == n_iter and len(tail) == per_epoch
+                and [r['epoch'] for r in tail] == [2] * per_epoch,
+                f'{case}: resumed run {again.step} steps, log {tail}')
+        require(max(rel) <= RESUME_TOL,
+                f'{case}: resumed losses differ by {rel} relative')
+        del again
+
+        # one more epoch of the same loop, profiled, without hooks
+        loop.hooks = []
+        loop.epoch = loop.total_epochs
+        loop.total_epochs += 1
+        prof = device_profile(loop.run)
+        require('busy_ms' in prof, f'{case} train profile: {prof}')
+
+        # the train split's loader alone, and each op on one thread
+        train = build_dataset(dict(cfg.data['train']))
+        loader = DataLoader(train, cfg.data['videos_per_gpu'],
+                            ShardedSampler(len(train), shuffle=False),
+                            num_workers=cfg.data['workers_per_gpu'],
+                            drop_last=True)
+        t1 = time.perf_counter()
+        n = sum(len(b['img_group']) for b in loader)
+        loader_s = time.perf_counter() - t1
+        op_ms = {}
+        ops = train.pipeline.transforms
+        train.pipeline.transforms = [_TimedOp(t, op_ms) for t in ops]
+        for i in range(DATA_VIDEOS):
+            train[i]
+        train.pipeline.transforms = ops
+
+        secs = [r['s'] for r in iters[1:]]
+        med = statistics.median(secs)
+        print('train_cli: ' + json.dumps(dict(
+            case=case, iterations=n_iter, batch=[
+                loop.loader.batch_size] + list(video.shape[1:]),
+            dtype=cfg.compute_dtype, run_s=run_s, s_per_iter=secs,
+            median_s_per_iter=med,
+            clips_per_s=loop.loader.batch_size / med,
+            loss=losses, resumed_loss=[r['loss'] for r in tail],
+            resume_loss_rel=rel,
+            loader_videos_per_s=n / loader_s,
+            loader_workers=cfg.data['workers_per_gpu'],
+            host_ms_by_op={k: statistics.median(v)
+                           for k, v in op_ms.items()},
+            bytes_uploaded_per_iter=loop.stager.bytes_uploaded
+            / loop.stager.uploads,
+            upload_dtype=str(loop.stager._bufs[0].dtype),
+            epoch_device_busy_ms=prof['busy_ms'],
+            epoch_device_idle_share=prof['idle_share'],
+            profiled_epoch_ms=prof['wall_ms'],
+            # the profiler slows the host: the busy time against as many
+            # unprofiled iterations of the median time
+            idle_share_of_median_iters=1 - prof['busy_ms'] / (
+                loop.iters_per_epoch * med * 1e3),
+            fused_launches={f'{k[1]}x{k[2]}x{k[3]}x{k[4]}/{k[5]}': v
+                            for k, v in launches[case].items()},
+            card=card_line())))
+        print(f'train_cli profile {case}: ' + json.dumps(prof))
+        del loop, model, fresh, step, train, loader
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_rawframes():
+    """Phases 5 and 6 on one rawframe dataset in a temporary directory;
+    returns their fused-kernel launches by case and shape."""
+    import tempfile
+
+    import cv2
     print('host: ' + json.dumps(host_census()))
     with tempfile.TemporaryDirectory() as root:
         t0 = time.perf_counter()
@@ -685,139 +1072,7 @@ def phase_data():
               f'{DATA_HW[1]}x{DATA_HW[0]}, mean JPEG {frame_bytes:.0f} bytes, '
               f'written in {time.perf_counter() - t0:.3f} s with cv2 '
               f'{cv2.__version__}')
-        ckpt = os.path.join(root, 'mvf_r50_random.pth')
-        flagship = Config.fromfile(CONFIG)
-        model = cli.build_model(flagship, True, 'prob')
-        model.init_weights(torch.Generator().manual_seed(0),
-                           randomize_bn=True)
-        torch.save(model.state_dict(), ckpt)
-        model.to('cuda')
-        labels = list(range(DATA_VIDEOS))
-
-        for case, device_norm in (('host_norm', False), ('device_norm', True)):
-            config = write_config(root, ann, device_norm)
-            out = os.path.join(root, f'scores_{case}.pkl')
-            run_cli(config, ckpt, out)                       # warm-up pass
-            torch.cuda.synchronize()
-            fb.bottleneck_eval_cuda.launches = 0
-            fb.bottleneck_eval_cuda.launches_by_shape.clear()
-            # the timed pass records the eval loop's time and keeps the
-            # stager that uploads its batches, for its byte counters
-            evaluate, eval_s = eval_mod.evaluate_dataset, []
-            stager_cls, stagers = prefetch.PinnedStager, []
-
-            def timed_evaluate(*args, **kwargs):
-                t1 = time.perf_counter()
-                scores = evaluate(*args, **kwargs)   # on the host: synced
-                eval_s.append(time.perf_counter() - t1)
-                return scores
-
-            def kept_stager(device):
-                stagers.append(stager_cls(device))
-                return stagers[-1]
-            eval_mod.evaluate_dataset = timed_evaluate
-            prefetch.PinnedStager = kept_stager
-            t0 = time.perf_counter()
-            try:
-                text = run_cli(config, ckpt, out)
-                torch.cuda.synchronize()
-                secs = time.perf_counter() - t0
-            finally:
-                eval_mod.evaluate_dataset = evaluate
-                prefetch.PinnedStager = stager_cls
-            require(len(stagers) == 1, f'{case}: {len(stagers)} stagers')
-            stager = stagers[0]
-            launches[case] = dict(fb.bottleneck_eval_cuda.launches_by_shape)
-            with open(out, 'rb') as f:
-                rows[case] = pickle.load(f)
-
-            require(len(rows[case]) == DATA_VIDEOS and all(
-                r.shape == (400,) for r in rows[case]),
-                f'{case}: scores {[r.shape for r in rows[case]]}')
-            got = np.stack(rows[case])
-            require(bool(np.isfinite(got).all()), f'{case}: non-finite')
-            require(bool((np.abs(got.sum(1) - 1) <= 1e-3).all()),
-                    f'{case}: class probabilities sum to {got.sum(1)}')
-            require(launches[case] == expected,
-                    f'{case}: fused kernel launches {launches[case]}, '
-                    f'expected {expected}')
-            require(fb.bottleneck_eval_cuda.launches
-                    == sum(expected.values()),
-                    f'{case}: fused kernel launched '
-                    f'{fb.bottleneck_eval_cuda.launches} times in all')
-            printed = dict(re.findall(r'^(Top-1|Top-5|Mean Class) Accuracy '
-                                      r'= (\d+\.\d\d)$', text, re.M))
-            want = numpy_accuracy(got, labels)
-            require(printed == {k: f'{v * 100:.02f}' for k, v in zip(
-                ('Top-1', 'Top-5', 'Mean Class'), want)},
-                f'{case}: printed {printed}, numpy {want}')
-
-            # the same frames straight through the eval step, each
-            # pipeline op, the collate and the pinned copy timed
-            cfg = Config.fromfile(config)
-            dataset = build_dataset(dict(cfg.data['test']))
-            decoder = dataset.pipeline.transforms[1].decoder
-            step = make_eval_step(model, norm_cfg=device_norm_cfg(
-                cfg.data['test']['pipeline']))
-            op_ms, item_ms, direct, pinned = {}, [], [], None
-            ops = dataset.pipeline.transforms
-            dataset.pipeline.transforms = [_TimedOp(t, op_ms) for t in ops]
-            for i in range(DATA_VIDEOS):
-                t1 = time.perf_counter()
-                sample = dataset[i]
-                item_ms.append((time.perf_counter() - t1) * 1e3)
-                t1 = time.perf_counter()
-                batch = default_collate([sample])['img_group']
-                op_ms.setdefault('collate', []).append(
-                    (time.perf_counter() - t1) * 1e3)
-                if pinned is None:
-                    pinned = torch.empty(batch.shape, pin_memory=True,
-                                         dtype=torch.from_numpy(batch).dtype)
-                t1 = time.perf_counter()
-                pinned.numpy()[...] = batch
-                op_ms.setdefault('pinned_copy', []).append(
-                    (time.perf_counter() - t1) * 1e3)
-                direct.append(step(model, batch).float().cpu().numpy()[0])
-            dataset.pipeline.transforms = ops
-            err = float(np.abs(got - np.stack(direct)).max())
-            require(err <= DATA_TOL, f'{case}: CLI scores vs eval step: max '
-                                     f'abs err {err} > {DATA_TOL}')
-            loader = DataLoader(dataset, 1, ShardedSampler(
-                len(dataset), shuffle=False),
-                num_workers=cfg.data['workers_per_gpu'])
-            t1 = time.perf_counter()
-            n = sum(len(b['img_group']) for b in loader)
-            loader_s = time.perf_counter() - t1
-            prof = device_profile(lambda: run_cli(config, ckpt, out))
-            require('busy_ms' in prof, f'{case} profile: {prof}')
-            htod = {k: v for k, v in prof['copies'].items() if 'HtoD' in k}
-            print('data: ' + json.dumps(dict(
-                case=case, decoder=decoder,
-                cpu_count=os.cpu_count(), videos=DATA_VIDEOS,
-                clips_per_video=VIEWS, pass_s=secs, eval_s=eval_s[0],
-                videos_per_s=DATA_VIDEOS / secs,
-                clips_per_s=DATA_VIDEOS * VIEWS / secs,
-                item_ms_one_thread=statistics.median(item_ms),
-                host_ms_by_op={k: statistics.median(v)
-                               for k, v in op_ms.items()},
-                loader_videos_per_s=n / loader_s,
-                loader_workers=cfg.data['workers_per_gpu'],
-                bytes_uploaded_per_video=stager.bytes_uploaded
-                / stager.uploads,
-                upload_dtype=str(sample['img_group'].dtype),
-                htod_copies=htod, device_busy_ms=prof['busy_ms'],
-                device_idle_share=prof['idle_share'],
-                profiled_pass_ms=prof['wall_ms'],
-                fused_launches=sum(launches[case].values()),
-                cli_vs_step_max_abs_err=err, card=card_line())))
-            print(f'data profile {case}: ' + json.dumps(prof))
-            del dataset, loader, step, pinned
-    err = float(np.abs(np.stack(rows['host_norm'])
-                       - np.stack(rows['device_norm'])).max())
-    print(f'data compare: host vs device normalization max abs err {err}')
-    require(err <= DATA_TOL, f'host vs device normalization: max abs err '
-                             f'{err} > {DATA_TOL}')
-    return launches
+        return phase_data(root, ann), phase_train_cli(root)
 
 
 def main():
@@ -846,12 +1101,14 @@ def main():
         records = phase_kernel()
         launches = phase_slice()
         phase_train()
-        data_launches = phase_data()
+        data_launches, train_launches = phase_rawframes()
         for r in records:
             key = (r['dtype'],) + tuple(r['shape'])
             r['launches'] = launches.get(key, 0)
             r['launches_cli'] = {case: n.get(key, 0)
                                  for case, n in data_launches.items()}
+            r['launches_train_cli'] = {case: n.get(key, 0)
+                                       for case, n in train_launches.items()}
     except SmokeFailure as e:
         print(f'chip_smoke: FAILED: {e}', file=sys.stderr)
         return 1

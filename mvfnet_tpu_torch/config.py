@@ -111,6 +111,9 @@ class Config:
     def __getattr__(self, name: str) -> Any:
         return getattr(self._cfg_dict, name)
 
+    def __setattr__(self, name: str, value: Any) -> None:
+        self._cfg_dict[name] = ConfigDict._wrap(value)
+
     def __getitem__(self, name: str) -> Any:
         return self._cfg_dict[name]
 

@@ -44,10 +44,10 @@ def evaluate_dataset(model: torch.nn.Module, dataset,
     """
     if extract_feat:
         raise NotImplementedError('extract_feat needs forward_extract_feat, '
-                                  'which is not ported yet (ROADMAP.md, A5)')
+                                  'which is not ported yet (ROADMAP.md, A7)')
     if getattr(getattr(model, 'backbone', None), 'quant', None):
         raise NotImplementedError('quantized backbones are not ported yet '
-                                  '(ROADMAP.md, A13)')
+                                  '(ROADMAP.md, A14)')
     device = resolve_device(device)
     world, rank = _world_rank()
     if world > 1:
@@ -58,14 +58,22 @@ def evaluate_dataset(model: torch.nn.Module, dataset,
     loader = DataLoader(dataset, videos_per_gpu, sampler,
                         num_workers=workers_per_gpu, drop_last=False)
     step = _cached_eval_step(model, _freeze(norm_cfg), device)
+    # a cached step finds the model as the caller left it: a train loop
+    # evaluating between epochs leaves it in train mode
+    was_training = model.training
+    model.eval()
 
     out: List[torch.Tensor] = []
     n_batches = len(loader)
     arrays = (np.asarray(batch['img_group']) for batch in loader)
-    for bi, imgs in enumerate(prefetch_to_device(arrays, device)):
-        out.append(step(model, imgs))
-        if progress and rank == 0 and (bi % 20 == 0 or bi == n_batches - 1):
-            print(f'\r[eval] {bi + 1}/{n_batches}', end='', flush=True)
+    try:
+        for bi, imgs in enumerate(prefetch_to_device(arrays, device)):
+            out.append(step(model, imgs))
+            if progress and rank == 0 and (bi % 20 == 0
+                                           or bi == n_batches - 1):
+                print(f'\r[eval] {bi + 1}/{n_batches}', end='', flush=True)
+    finally:
+        model.train(was_training)
     if progress and rank == 0:
         print()
     if not out:

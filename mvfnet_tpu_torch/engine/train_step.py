@@ -64,20 +64,32 @@ class TrainState:
     step: int = 0
 
 
+def dropout_seed(seed: int, step: int) -> int:
+    """The dropout generator's seed for ``step`` of a run seeded ``seed``:
+    the counterpart of ``jax.random.fold_in(PRNGKey(seed + 1), step)`` in
+    the JAX package's loop and step, a function of the pair alone."""
+    state = np.random.SeedSequence([seed + 1, step]).generate_state(
+        1, np.uint64)
+    return int(state[0]) >> 1
+
+
 def make_train_step(model: torch.nn.Module,
                     optimizer,
                     lr_schedule: Callable[[int], float],
                     norm_cfg: Optional[Dict[str, Any]] = None,
-                    device: Union[None, str, torch.device] = None
-                    ) -> Callable:
+                    device: Union[None, str, torch.device] = None,
+                    seed: Optional[int] = None) -> Callable:
     """Build ``train_step(imgs, labels, generator=None) -> metrics``.
 
     ``optimizer`` is ``engine.optim.build_optimizer``'s. ``imgs`` is a
     ``(B, S, H, W, C)`` array or tensor (uint8 when ``norm_cfg['device']``
     defers normalization to the device), ``labels`` ``(B,)`` class indices,
     ``generator`` the dropout mask's generator on ``device`` (CUDA by
-    default). The frames are normalized on the device into the model's
-    compute dtype. The LR of step t is
+    default). Without one, and with ``seed``, step t draws its mask from a
+    generator on the device seeded with ``dropout_seed(seed, t)``, so a run
+    resumed at step t draws the masks of an unbroken one; with neither, the
+    device's default generator draws it. The frames are normalized on the
+    device into the model's compute dtype. The LR of step t is
     ``lr_schedule(t)``, t counted from 0 in ``train_step.state``.
 
     ``metrics``: the head's losses, ``loss`` (the sum of every entry whose
@@ -88,8 +100,13 @@ def make_train_step(model: torch.nn.Module,
     device = resolve_device(device)
     model.to(device)
     state = TrainState()
+    step_generator = (torch.Generator(device=device) if seed is not None
+                      else None)
 
     def train_step(imgs, labels, generator=None) -> Dict[str, Any]:
+        if generator is None and step_generator is not None:
+            generator = step_generator.manual_seed(
+                dropout_seed(seed, state.step))
         imgs = maybe_device_normalize(_to_device(imgs, device), norm_cfg,
                                       model.compute_dtype)
         labels = _to_device(labels, device)

@@ -1,2 +1,3 @@
-"""Command-line tools of the port: the dense-test CLI and, on the card
-only, the kernel measurements."""
+"""Command-line tools of the port: the train and dense-test CLIs
+(``train_recognizer``, ``test_recognizer``) and, on the card only, the
+kernel measurements (``kernel_stages``)."""

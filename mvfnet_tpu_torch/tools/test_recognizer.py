@@ -5,12 +5,15 @@
         [--videos_per_gpu N] [--device cuda|cpu]
 
 Builds the model and the config's test dataset, loads a ``.pth`` checkpoint
-(every key of the model, no other), runs ``engine.eval.evaluate_dataset``
-on the device, writes the scores as a pickled list of ``(K,)`` arrays, and
-prints Top-1 / Top-5 / mean-class accuracy in the JAX CLI's format. The
-compute dtype is the config's ``compute_dtype``; the config's
-``Normalize`` decides whether the host or the device normalizes. It runs on
-CUDA unless ``--device cpu`` is given, and raises without CUDA.
+through the non-strict importer (``utils.checkpoint.import_torch_state_dict``,
+the JAX CLI's ``import_torch_weights`` rules) and logs its report, runs
+``engine.eval.evaluate_dataset`` on the device, writes the scores as a
+pickled list of ``(K,)`` arrays, and prints Top-1 / Top-5 / mean-class
+accuracy in the JAX CLI's format. The compute dtype is the config's
+``compute_dtype`` (bf16 for the flagship, whose fused kernel's tiled path
+is bf16; the JAX CLI computes in float32 whatever the config says); the
+config's ``Normalize`` decides whether the host or the device normalizes.
+It runs on CUDA unless ``--device cpu`` is given, and raises without CUDA.
 """
 
 from __future__ import annotations
@@ -49,7 +52,7 @@ def build_model(cfg, fcn_testing: bool, average_clips: str,
     from ..models import build_recognizer
     if (cfg.model.get('backbone') or {}).get('quant'):
         raise NotImplementedError('quantized backbones and int8 calibration '
-                                  'are not ported yet (ROADMAP.md, A13)')
+                                  'are not ported yet (ROADMAP.md, A14)')
     model_cfg = dict(cfg.model, fcn_testing=fcn_testing,
                      dtype=cfg.get('compute_dtype'))
     if 'cls_head' in model_cfg:
@@ -61,14 +64,22 @@ def build_model(cfg, fcn_testing: bool, average_clips: str,
     return build_recognizer(model_cfg, train_cfg=None, test_cfg=test_cfg)
 
 
-def load_checkpoint(model, checkpoint: str) -> None:
-    """Load a ``.pth`` state dict into ``model``: every key, no other."""
+def load_checkpoint(model, checkpoint: str, logger=None) -> Dict[str, Any]:
+    """Load a ``.pth`` checkpoint into ``model`` non-strictly, as the JAX
+    CLI does; logs and returns the importer's report."""
     if not checkpoint.endswith('.pth'):
         raise NotImplementedError(
             f'{checkpoint}: only .pth checkpoints load in the port; the '
-            '.msgpack loader is not ported yet (ROADMAP.md, A9)')
-    from ..utils.checkpoint import load_torch_state_dict
-    model.load_state_dict(load_torch_state_dict(checkpoint), strict=True)
+            '.msgpack loader is not ported yet (ROADMAP.md, A6)')
+    from ..utils.checkpoint import (import_torch_state_dict,
+                                    load_torch_state_dict)
+    from ..utils.logging import get_root_logger
+    logger = logger or get_root_logger()
+    report = import_torch_state_dict(model, load_torch_state_dict(checkpoint),
+                                     logger=logger)
+    logger.info('loaded %s: %s', checkpoint, ', '.join(
+        f'{len(v)} {k}' for k, v in report.items()))
+    return report
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
@@ -90,7 +101,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     logger = get_root_logger(cfg.get('log_level', 'INFO'))
     model = build_model(cfg, args.fcn_testing, args.average_clips,
                         args.view_chunk)
-    load_checkpoint(model, args.checkpoint)
+    load_checkpoint(model, args.checkpoint, logger)
 
     dataset = build_dataset(dict(cfg.data['test']))
     logger.info('test dataset: %d videos', len(dataset))

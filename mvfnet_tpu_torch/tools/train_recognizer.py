@@ -1,0 +1,145 @@
+"""Train CLI of the port (counterpart of the root ``train_recognizer.py``).
+
+    python -m mvfnet_tpu_torch.tools.train_recognizer CONFIG \\
+        [--work_dir DIR] [--resume_from DIR/epoch_N.pth] [--validate] \\
+        [--seed N] [--bf16] [--autoscale-lr] [--profile N] \\
+        [--device cuda|cpu]
+
+Builds the config's recognizer in its ``compute_dtype`` (bf16 with
+``--bf16``; parameters stay float32) and its train dataset, and runs
+``engine.train_loop.train_network`` on one card: ``epoch_N.pth`` and
+``latest.pth`` checkpoints and ``train.log`` go to the work directory, and
+``--validate`` evaluates ``data.val`` every ``eval_interval`` epochs.
+``--profile N`` traces iterations 1..N with ``torch.profiler`` into
+``WORK_DIR/profile``. It runs on CUDA unless ``--device cpu`` is given, and
+raises without CUDA; ``--launcher env|slurm`` and ``--gpus`` above 1 raise
+(multi-process training is ``ROADMAP.md`` A8).
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+from typing import Optional, Sequence
+
+
+def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
+    parser = argparse.ArgumentParser(description='Train an action recognizer')
+    parser.add_argument('config', help='config file path')
+    parser.add_argument('--work_dir', help='dir to save logs and checkpoints')
+    parser.add_argument('--resume_from', help='checkpoint to resume from')
+    parser.add_argument('--validate', action='store_true',
+                        help='run top-k evaluation during training')
+    parser.add_argument('--gpus', type=int, default=None,
+                        help='number of cards (one is ported)')
+    parser.add_argument('--seed', type=int, default=None, help='random seed')
+    parser.add_argument('--launcher', default='none',
+                        choices=['none', 'env', 'slurm'],
+                        help='multi-process launcher (not ported yet)')
+    parser.add_argument('--autoscale-lr', action='store_true',
+                        help='scale lr by cards / 8')
+    parser.add_argument('--bf16', action='store_true', default=None,
+                        help='force bfloat16 compute (default: config)')
+    parser.add_argument('--profile', type=int, default=0, metavar='N',
+                        help='trace iterations 1..N with torch.profiler '
+                             'into WORK_DIR/profile')
+    parser.add_argument('--device', default='cuda',
+                        help="'cuda' (the default; raises without CUDA) or "
+                             "'cpu'")
+    return parser.parse_args(argv)
+
+
+def _profile_hook(n: int, out_dir: str, logger):
+    from ..engine.train_loop import Hook
+
+    class ProfileHook(Hook):
+        """torch.profiler over the N iterations after the first."""
+
+        def __init__(self):
+            self._prof = None
+
+        def after_iter(self, loop, metrics):
+            if loop.iter == 1 and self._prof is None:
+                from torch.profiler import ProfilerActivity, profile
+                activities = [ProfilerActivity.CPU]
+                if loop.device.type == 'cuda':
+                    activities.append(ProfilerActivity.CUDA)
+                self._prof = profile(activities=activities)
+                self._prof.__enter__()
+            elif loop.iter == 1 + n and self._prof is not None:
+                self.after_run(loop)
+
+        def after_run(self, loop):
+            if not self._prof:
+                return
+            self._prof.__exit__(None, None, None)
+            os.makedirs(out_dir, exist_ok=True)
+            path = os.path.join(out_dir, 'trace.json')
+            self._prof.export_chrome_trace(path)
+            self._prof = False          # done: no second trace
+            logger.info('profiler trace written to %s', path)
+
+    return ProfileHook()
+
+
+def main(argv: Optional[Sequence[str]] = None):
+    """Train; returns the ``TrainLoop`` after its run."""
+    args = parse_args(argv)
+    if args.launcher != 'none':
+        raise NotImplementedError(
+            f'--launcher {args.launcher}: multi-process training is not '
+            'ported yet (ROADMAP.md, A8)')
+    if args.gpus is not None and args.gpus > 1:
+        raise NotImplementedError(
+            f'--gpus {args.gpus}: the port trains on one card; more is not '
+            'ported yet (ROADMAP.md, A8)')
+    from ..config import Config
+    from ..data import build_dataset
+    from ..engine.train_loop import train_network
+    from ..engine.train_step import resolve_device
+    from ..models import build_recognizer
+    from ..utils.logging import get_root_logger
+
+    device = resolve_device(args.device)
+    cfg = Config.fromfile(args.config)
+    if args.work_dir is not None:
+        cfg.work_dir = args.work_dir
+    if args.resume_from is not None:
+        cfg.resume_from = args.resume_from
+    if args.autoscale_lr:
+        cfg.optimizer['lr'] = cfg.optimizer['lr'] * 1 / 8
+
+    os.makedirs(cfg.work_dir, exist_ok=True)
+    logger = get_root_logger(cfg.get('log_level', 'INFO'))
+    # this run's log file, detached at the end so that runs in one process
+    # each write their own
+    log_file = logging.FileHandler(os.path.join(cfg.work_dir, 'train.log'))
+    log_file.setFormatter(logging.Formatter(
+        '%(asctime)s - %(name)s - %(levelname)s - %(message)s'))
+    logger.addHandler(log_file)
+    try:
+        logger.info('config: %s', args.config)
+        dtype = 'bfloat16' if args.bf16 else cfg.get('compute_dtype',
+                                                     'float32')
+        model = build_recognizer(dict(cfg.model, dtype=dtype),
+                                 train_cfg=cfg.get('train_cfg'),
+                                 test_cfg=cfg.get('test_cfg'))
+        dataset = build_dataset(dict(cfg.data['train']))
+        if args.seed is not None and hasattr(dataset, 'seed'):
+            dataset.seed = args.seed
+        logger.info('dataset: %d videos, compute dtype %s, device %s',
+                    len(dataset), dtype, device)
+        extra_hooks = ([_profile_hook(args.profile,
+                                      os.path.join(cfg.work_dir, 'profile'),
+                                      logger)] if args.profile else [])
+        return train_network(model, dataset, cfg, validate=args.validate,
+                             logger=logger, seed=args.seed or 0,
+                             device=device, extra_hooks=extra_hooks)
+    finally:
+        logger.removeHandler(log_file)
+        log_file.close()
+
+
+if __name__ == '__main__':
+    main()

@@ -8,15 +8,28 @@
   Linear ``(out, in)``, and the BN names. ``jax_entries`` gives the same
   mapping leaf by leaf, with each leaf's JAX path.
 - ``load_torch_state_dict``: a reference ``.pth`` -> ``{name: tensor}``.
+- ``import_torch_state_dict``: the non-strict import of a reference or
+  torchvision state dict into a port model, with the JAX importer's key
+  rules (``mvfnet_tpu/utils/checkpoint.py::import_torch_weights``) for the
+  vocabularies the port has models for.
+- ``save_checkpoint`` / ``load_checkpoint``: the train loop's checkpoints.
+  The JAX package writes ``.msgpack`` files with a ``.meta.json`` sidecar;
+  the port writes ``.pth`` files in mmcv's layout, ``{'meta': {'epoch',
+  'iter'}, 'state_dict', 'optimizer'}``, with the model in the reference
+  vocabulary, so the JAX package's ``import_torch_weights`` reads them.
 """
 
 from __future__ import annotations
 
+import os
 import re
-from typing import Any, Dict, Iterator, Tuple
+import tempfile
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from .logging import get_root_logger
 
 _BN_LEAF = {'scale': 'weight', 'bias': 'bias', 'mean': 'running_mean',
             'var': 'running_var'}
@@ -99,11 +112,159 @@ def state_dict_from_jax(variables: Dict[str, Any]
     return out
 
 
+def _strip_module(key: str) -> str:
+    return key[len('module.'):] if key.startswith('module.') else key
+
+
 def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
     """Read a reference torch checkpoint: raw state dicts or
     ``{'state_dict': ...}`` wrappers, ``module.`` prefixes stripped."""
+    return load_checkpoint(path)[0]
+
+
+# ------------------------------------------------------- non-strict import
+
+_HEAD_ALIASES = ('new_fc', 'new_cls', 'fc_cls')
+_BLOCK_CONV1 = re.compile(r'(backbone\.layer\d+\.\d+\.conv1)(\.net)?\.weight$')
+
+
+def _port_name(key: str, targets) -> Optional[str]:
+    """The port name a reference or torchvision key loads into, or None for
+    a key skipped on purpose (torchvision's classifier: the recognizer's
+    head trains fresh). A name that is not in ``targets`` is unexpected."""
+    parts = key.split('.')
+    if parts[0] == 'cls_head':
+        # new_fc: TSNClsHead; new_cls: its fcn alias; fc_cls: I3D heads
+        if len(parts) > 1 and parts[1] in _HEAD_ALIASES:
+            return 'cls_head.new_fc.' + ('weight' if parts[-1] == 'weight'
+                                         else 'bias')
+        return key
+    if parts[0] == 'fc':
+        return None
+    name = key if parts[0] == 'backbone' else 'backbone.' + key
+    m = _BLOCK_CONV1.match(name)
+    if m and name not in targets:
+        # MVF wraps a block's conv1 as conv1.net: a plain ResNet's conv1
+        # is the same weight, and the other way round
+        other = m.group(1) + ('.weight' if m.group(2) else '.net.weight')
+        if other in targets:
+            return other
+    return name
+
+
+def import_torch_state_dict(model: torch.nn.Module,
+                            state_dict: Dict[str, Any],
+                            inflate_in_channels: Optional[int] = None,
+                            logger=None) -> Dict[str, List[str]]:
+    """Non-strict import of a reference or torchvision state dict into
+    ``model`` in place; returns the report ``{applied, missing, unexpected,
+    mismatched}`` in port names (``unexpected`` keeps the source's keys).
+
+    The key rules of the JAX package's ``import_torch_weights``
+    (``mvfnet_tpu/utils/checkpoint.py:165-492``) for the 2-D Bottleneck
+    ResNet, MVF and the TSN head: ``module.`` prefixes are stripped,
+    ``num_batches_tracked`` and torchvision's ``fc.*`` are skipped,
+    ``cls_head.{new_fc,new_cls,fc_cls}.*`` load into ``cls_head.new_fc``, a
+    key without ``backbone.`` loads into the backbone, and a block's
+    ``conv1.weight`` and ``conv1.net.weight`` stand for each other. A key of
+    the wrong size is skipped and reported as mismatched and, as in the JAX
+    importer, also as unexpected; a key the model lacks is unexpected; a
+    model entry no key reached keeps its value and is reported missing.
+    ``inflate_in_channels`` (10 for Flow, 15 for RGBDiff) turns an RGB stem
+    into the mean over its input channels, broadcast. The vocabularies the
+    port has no model for (BNInception, MobileNet, I3D, SlowFast, X3D,
+    R(2+1)D, TRN, non-local) end up unexpected.
+    """
+    logger = logger or get_root_logger()
+    targets = model.state_dict()
+    applied: List[str] = []
+    unexpected: List[str] = []
+    mismatched: List[str] = []
+    updates: Dict[str, torch.Tensor] = {}
+    for key, value in state_dict.items():
+        key = _strip_module(key)
+        if key.endswith('num_batches_tracked'):
+            continue
+        name = _port_name(key, targets)
+        if name is None:
+            continue
+        if name not in targets or name.endswith('num_batches_tracked'):
+            unexpected.append(key)
+            continue
+        value = torch.as_tensor(value)
+        if (inflate_in_channels is not None
+                and name == 'backbone.conv1.weight' and value.ndim == 4
+                and value.shape[1] == 3 and inflate_in_channels != 3):
+            value = value.mean(dim=1, keepdim=True).expand(
+                -1, inflate_in_channels, -1, -1)
+        target = targets[name]
+        if value.shape != target.shape:
+            mismatched.append(f'{name}: ckpt {tuple(value.shape)} vs model '
+                              f'{tuple(target.shape)}')
+            unexpected.append(key)
+            continue
+        updates[name] = value
+        applied.append(name)
+    with torch.no_grad():
+        for name, value in updates.items():
+            targets[name].copy_(value)
+    done = set(applied)
+    missing = [n for n in targets
+               if n not in done and not n.endswith('num_batches_tracked')]
+    for what, keys, log in (
+            ('size-mismatched keys skipped (non-strict load)', mismatched,
+             logger.warning),
+            ('unexpected keys in source state_dict', unexpected, logger.info),
+            ('params not found in source state_dict', missing, logger.info)):
+        if keys:
+            log('%s: %s', what, ', '.join(keys[:20])
+                + (' ...' if len(keys) > 20 else ''))
+    return dict(applied=applied, missing=missing, unexpected=unexpected,
+                mismatched=mismatched)
+
+
+# ------------------------------------------------------- train checkpoints
+
+def save_checkpoint(path: str, model: torch.nn.Module, optimizer=None,
+                    meta: Optional[Dict[str, Any]] = None) -> None:
+    """Write ``{'meta', 'state_dict', 'optimizer'}`` to ``path`` (``.pth``)
+    atomically: a temporary file in the same directory, then
+    ``os.replace``. The weights are written from host copies."""
+    payload: Dict[str, Any] = {
+        'meta': dict(meta or {}),
+        'state_dict': {k: v.detach().cpu()
+                       for k, v in model.state_dict().items()}}
+    if optimizer is not None:
+        payload['optimizer'] = optimizer.state_dict()
+    dirpath = os.path.dirname(os.path.abspath(path))
+    os.makedirs(dirpath, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=dirpath, suffix='.tmp')
+    try:
+        with os.fdopen(fd, 'wb') as f:
+            torch.save(payload, f)
+        os.replace(tmp, path)
+    except BaseException:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+        raise
+
+
+def load_checkpoint(path: str) -> Tuple[Dict[str, torch.Tensor],
+                                        Optional[Dict[str, Any]],
+                                        Dict[str, Any]]:
+    """``(state_dict, optimizer_state, meta)`` of a torch checkpoint on the
+    host, ``module.`` prefixes stripped; a raw state dict gives no
+    optimizer state and an empty meta. The JAX package's ``.msgpack``
+    checkpoints raise."""
+    if path.endswith('.msgpack'):
+        raise NotImplementedError(
+            f'{path}: the .msgpack checkpoint reader is not ported yet '
+            '(ROADMAP.md, A6); the port reads and writes .pth')
     ckpt = torch.load(path, map_location='cpu', weights_only=False)
-    sd = ckpt['state_dict'] if isinstance(ckpt, dict) and \
-        'state_dict' in ckpt else ckpt
-    return {(k[len('module.'):] if k.startswith('module.') else k): v
-            for k, v in sd.items() if isinstance(v, torch.Tensor)}
+    wrapped = isinstance(ckpt, dict) and 'state_dict' in ckpt
+    sd = ckpt['state_dict'] if wrapped else ckpt
+    sd = {_strip_module(k): v for k, v in sd.items()
+          if isinstance(v, torch.Tensor)}
+    if not wrapped:
+        return sd, None, {}
+    return sd, ckpt.get('optimizer'), dict(ckpt.get('meta') or {})

@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
-and a small train step that must not launch them, and the eval loop's
-pinned-memory prefetch.
+a small train step that must not launch them, a bf16 train loop epoch whose
+mid-train evaluation must, and the eval loop's pinned-memory prefetch.
 
 Every test here carries the ``cuda`` marker and skips without a GPU. This
 file imports neither JAX nor the JAX package, so it also runs on a machine
@@ -22,13 +22,15 @@ from mvfnet_tpu_torch.ops import fused_block as fb
 
 pytestmark = pytest.mark.cuda
 
-# (N, H, W, Cin), Cm: the JAX suite's shapes (general kernel), and shapes
+# (N, H, W, Cin), Cm: the JAX suite's shapes (general kernel), shapes
 # that take the tiled bf16 kernel at the edges of its strip walk: H and W
 # not multiples of its tile, H not a multiple of the strip or the step
-# (a ragged last step), H = 1, and H below the step with W ragged
+# (a ragged last step), H = 1, and H below the step with W ragged; and the
+# two shapes of the train loop's evaluation (8 frames at 224^2)
 SHAPES = [((2, 8, 8, 32), 16), ((1, 6, 10, 24), 8), ((3, 13, 11, 128), 64),
           ((160, 37, 20, 128), 64), ((1, 1, 64, 256), 64),
-          ((2, 3, 9, 192), 128)]
+          ((2, 3, 9, 192), 128), ((8, 56, 56, 256), 64),
+          ((8, 28, 28, 512), 128)]
 
 
 @pytest.fixture
@@ -125,6 +127,84 @@ def test_train_steps_launch_no_fused_kernel_and_eval_does(cuda):
     assert bool(torch.isfinite(scores).all())
     # layer1.1-2 and layer2.1-3
     assert fb.bottleneck_eval_cuda.launches == before + 5
+
+
+def test_train_loop_epoch_in_bf16_evaluates_through_the_kernel(cuda,
+                                                               tmp_path):
+    """One bf16 epoch of the train loop on 4 tiny rawframe videos (uint8
+    frames normalized on the card), then its EvalHook pass: finite losses,
+    a checkpoint, and 2 + 3 fused launches per val video, none while
+    training."""
+    import cv2
+    from mvfnet_tpu_torch.config import Config
+    from mvfnet_tpu_torch.data import build_dataset
+    from mvfnet_tpu_torch.engine.train_loop import Hook, train_network
+    rng = np.random.RandomState(0)
+    for v in range(4):
+        (tmp_path / f'v{v}').mkdir()
+        for f in range(8):
+            cv2.imwrite(str(tmp_path / f'v{v}' / f'img_{f + 1:05}.jpg'),
+                        rng.randint(0, 255, (48, 48, 3), np.uint8))
+    ann = tmp_path / 'ann.txt'
+    ann.write_text(''.join(f'v{v} 8 {v % 2}\n' for v in range(4)))
+    norm = dict(type='Normalize', mean=[123.675, 116.28, 103.53],
+                std=[58.395, 57.12, 57.375], to_rgb=True, device=True)
+
+    def split(crop, test_mode):
+        return dict(type='RawFramesDataset', ann_file=str(ann),
+                    data_root=str(tmp_path), test_mode=test_mode,
+                    pipeline=[dict(type='SampleFrames', clip_len=2,
+                                   frame_interval=2, num_clips=1),
+                              dict(type='FrameSelector'), crop, norm,
+                              dict(type='FormatShape', input_format='NHWC'),
+                              dict(type='Collect', keys=['img_group',
+                                                         'label'],
+                                   meta_keys=[])])
+    cfg = Config(dict(
+        model=dict(type='Recognizer2D',
+                   backbone=dict(type='ResNet', depth=50, out_indices=(3,),
+                                 norm_eval=False),
+                   cls_head=dict(type='TSNClsHead', spatial_type='avg',
+                                 dropout_ratio=0.5, in_channels=2048,
+                                 init_std=0.01, num_classes=2),
+                   module_cfg=dict(type='MVF', n_segment=2, alpha=0.125,
+                                   mvf_freq=(0, 0, 1, 1), mode='THW')),
+        data=dict(videos_per_gpu=2, workers_per_gpu=2,
+                  train=split(dict(type='RandomResizedCrop', input_size=64),
+                              False),
+                  val=split(dict(type='Resize', scale=(64, 64),
+                                 keep_ratio=False), True)),
+        optimizer=dict(type='SGD', lr=0.01, momentum=0.9, weight_decay=1e-4,
+                       nesterov=True),
+        optimizer_config=dict(grad_clip=dict(max_norm=40)),
+        lr_config=dict(policy='step', step=[10]), total_epochs=1,
+        checkpoint_config=dict(interval=1), log_config=dict(interval=1),
+        eval_interval=1, work_dir=str(tmp_path / 'work')))
+    losses, train_launches = [], []
+
+    class Watch(Hook):
+        def after_iter(self, loop, metrics):
+            losses.append(metrics['loss'].item())
+            train_launches.append(fb.bottleneck_eval_cuda.launches)
+
+    model = build_recognizer(dict(cfg.model, dtype='bfloat16'),
+                             test_cfg=dict(average_clips='prob'))
+    before = dict(fb.bottleneck_eval_cuda.launches_by_shape)
+    start = fb.bottleneck_eval_cuda.launches
+    loop = train_network(model, build_dataset(dict(cfg.data.train)), cfg,
+                         validate=True, extra_hooks=[Watch()])
+    torch.cuda.synchronize()
+    assert len(losses) == 2 and all(np.isfinite(losses))
+    assert train_launches == [start, start]
+    assert (tmp_path / 'work' / 'epoch_1.pth').exists()
+    assert loop.stager.uploads == 2 and loop.stager._bufs[0].dtype == \
+        torch.uint8
+    grown = {k: v - before.get(k, 0) for k, v in
+             fb.bottleneck_eval_cuda.launches_by_shape.items()
+             if v != before.get(k, 0)}
+    assert grown == {('bfloat16', 2, 16, 16, 256, 64): 2 * 4,
+                     ('bfloat16', 2, 8, 8, 512, 128): 3 * 4}
+    assert loop.eval_history[0]['scores'].shape == (4, 2)
 
 
 def test_prefetch_stages_through_two_pinned_buffers(cuda):

@@ -143,7 +143,7 @@ def test_evaluate_dataset_edges(setup, tmp_path):
     empty = build_dataset(dict(dataset_cfg(root, False),
                                ann_file=str(tmp_path / 'empty.txt')))
     assert evaluate_dataset(model, empty, device='cpu').shape == (0, 0)
-    with pytest.raises(NotImplementedError, match='A5'):
+    with pytest.raises(NotImplementedError, match='A7'):
         evaluate_dataset(model, empty, extract_feat=True, device='cpu')
 
 
@@ -223,10 +223,79 @@ def test_cli_defaults_to_cuda_and_refuses_without_it(setup, tmp_path):
     assert ACC.findall(proc.stdout) == []
 
 
+def test_both_clis_score_a_pth_without_num_batches_tracked_alike(setup,
+                                                                tmp_path):
+    """The JAX package's CLI (a subprocess) and the port's on one ``.pth``
+    without ``num_batches_tracked`` and a config without ``compute_dtype``:
+    both load it non-strictly and compute in float32, so their pickles
+    agree. Two videos at 32x32, one centre crop of one clip."""
+    root, _ = setup
+    sd = torch.load(root / 'model.pth', weights_only=False)['state_dict']
+    ckpt = tmp_path / 'no_nbt.pth'
+    torch.save({'state_dict': {k: v for k, v in sd.items()
+                               if not k.endswith('num_batches_tracked')}},
+               ckpt)
+    (tmp_path / 'ann.txt').write_text(
+        ''.join(f'{n} {t} {lab}\n' for n, t, lab in VIDEOS[:2]))
+    cfg, _ = model_cfg('prob')
+    cfg.pop('fcn_testing')
+    cfg.pop('dtype')
+    test = dict(dataset_cfg(root, False), ann_file=str(tmp_path / 'ann.txt'))
+    test['pipeline'] = [
+        dict(op, num_clips=1) if op['type'] == 'SampleFrames'
+        else dict(type='Resize', scale=(float('inf'), 32), keep_ratio=True)
+        if op['type'] == 'Resize'
+        else dict(type='CenterCrop', crop_size=32)
+        if op['type'] == 'ThreeCrop' else op for op in test['pipeline']]
+    config = tmp_path / 'cfg.py'
+    config.write_text(re.sub(r'\binf\b', "float('inf')", (
+        f'model = {cfg!r}\n'
+        "test_cfg = dict(average_clips='prob')\n"
+        f'data = dict(videos_per_gpu=1, workers_per_gpu=2, test={test!r})\n'
+        )))
+    env = {k: v for k, v in os.environ.items() if k != 'XLA_FLAGS'}
+    env.update(PYTHONPATH=REPO, JAX_PLATFORMS='cpu')
+    want_pkl = tmp_path / 'jax.pkl'
+    proc = subprocess.run(
+        [sys.executable, os.path.join(REPO, 'test_recognizer.py'),
+         str(config), str(ckpt), '--out', str(want_pkl)], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    got = cli.main([str(config), str(ckpt), '--device', 'cpu'])
+    with open(want_pkl, 'rb') as f:
+        want = np.stack(pickle.load(f))
+    assert got['scores'].dtype == want.dtype == np.float32
+    assert got['scores'].shape == want.shape == (2, NUM_CLASSES)
+    np.testing.assert_allclose(got['scores'], want, rtol=1e-5)
+    assert ACC.findall(proc.stdout)[0] == (
+        'Top-1 Accuracy', f'{got["top1"] * 100:.02f}')
+
+    model = cli.build_model(Config.fromfile(str(config)), False, 'prob')
+    report = cli.load_checkpoint(model, str(ckpt))
+    assert (report['missing'], report['unexpected'],
+            report['mismatched']) == ([], [], [])
+    assert len(report['applied']) == len(sd) - sum(
+        k.endswith('num_batches_tracked') for k in sd)
+
+
+def test_cli_computes_in_the_config_dtype():
+    """The port's CLI scores in the config's ``compute_dtype``: bf16 for the
+    flagship (the JAX CLI's recognizer computes in float32 whatever the
+    config says), float32 without one."""
+    flagship = Config.fromfile(os.path.join(
+        REPO, 'configs', 'mvf', 'k400', 'mvf_kinetics400_r50_8x8_dense.py'))
+    model = cli.build_model(flagship, True, 'prob')
+    assert model.compute_dtype == torch.bfloat16
+    assert model.cls_head.new_fc.weight.dtype == torch.float32
+    flagship.compute_dtype = None
+    assert cli.build_model(flagship, True, 'prob').compute_dtype == \
+        torch.float32
+
+
 def test_cli_refuses_what_is_not_ported(setup, tmp_path):
     root, _ = setup
     config = write_config(root, tmp_path / 'cfg.py')
-    with pytest.raises(NotImplementedError, match='A9'):
+    with pytest.raises(NotImplementedError, match='A6'):
         cli.main([config, str(tmp_path / 'model.msgpack'), '--device',
                   'cpu'])
     with pytest.raises(NotImplementedError, match='A8'):
@@ -234,5 +303,5 @@ def test_cli_refuses_what_is_not_ported(setup, tmp_path):
     quant = tmp_path / 'quant.py'
     quant.write_text(f"_base_ = '{config}'\n"
                      "model = dict(backbone=dict(quant='int8_static'))\n")
-    with pytest.raises(NotImplementedError, match='A13'):
+    with pytest.raises(NotImplementedError, match='A14'):
         cli.main([str(quant), str(root / 'model.pth'), '--device', 'cpu'])

@@ -47,7 +47,9 @@ def test_import_loads_no_jax_triton_or_kernel():
         'import mvfnet_tpu_torch.engine.train_step\n'
         'import mvfnet_tpu_torch.utils.checkpoint\n'
         'import mvfnet_tpu_torch.data, mvfnet_tpu_torch.engine.eval\n'
+        'import mvfnet_tpu_torch.engine, mvfnet_tpu_torch.engine.train_loop\n'
         'import mvfnet_tpu_torch.tools.test_recognizer\n'
+        'import mvfnet_tpu_torch.tools.train_recognizer\n'
         'from mvfnet_tpu_torch.ops import _cuda\n'
         'mods = [m for m in sys.modules if m.split(".")[0] in '
         '("jax", "flax", "triton") or m == "mvfnet_tpu" '
