@@ -56,8 +56,24 @@ Phases, each of which exits non-zero on failure:
    times the train loader and its ops; prints a ``train_cli:`` line per
    case (s/iter, clips/s, loader rate, bytes per iteration, device busy
    time and idle share, fused launches by shape).
+7. the JAX package's other entry points, on the same videos: the seeded
+   model written as a ``.msgpack`` (``save_msgpack_checkpoint``) scores
+   through the test CLI within 1e-5 of phase 5's ``.pth`` (device
+   normalization), with each format's bytes and load time; phase 6's
+   state after epoch 1 written as a ``.msgpack`` with its SGD state in
+   optax's layout resumes the train CLI to epoch 2's losses within 2e-2 of
+   the ``.pth`` resume's; the feature CLI (``--fcn_testing``, device
+   normalization, the ``.msgpack``) writes 8 entries of 30 x 2048 finite
+   floats with 2 + 3 fused launches a video, whose FC lies within
+   3e-2 of the largest of the eval step's per-clip logits, with a warm-up,
+   a timed and a profiled pass (a ``features:`` line); ``count_flops`` on
+   the flagship gives 24,342,416 parameters and the convolution and FC
+   multiply-adds worked out from the layers' shapes; ``report_accuracy`` on
+   phase 5's two score pickles prints numpy's accuracies, with and without
+   a softmax.
 
-Prints the ``{"kernels": [...]}`` line, the card's name and power limit,
+Prints the ``{"kernels": [...]}`` line (launches of the fused kernel per
+shape in phases 3, 5, 6 and 7), the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Without CUDA, or without the
 repository beside it, it exits non-zero and prints no result.
 """
@@ -567,12 +583,18 @@ def host_census():
     JPEG headers and shared libraries, cores and memory."""
     import ctypes.util
     import importlib
+    import importlib.metadata
     out = {}
     for mod in ('cv2', 'PIL', 'numpy', 'torchvision'):
         try:
             out[mod] = importlib.import_module(mod).__version__
         except ImportError:
             out[mod] = None
+    # information only, and not imported: the port carries its own codec
+    try:
+        out['msgpack'] = importlib.metadata.version('msgpack')
+    except importlib.metadata.PackageNotFoundError:
+        out['msgpack'] = None
     out['jpeglib.h'] = os.path.exists('/usr/include/jpeglib.h')
     out['nvjpeg.h'] = os.path.exists('/usr/local/cuda/include/nvjpeg.h')
     out['libjpeg'] = ctypes.util.find_library('jpeg')
@@ -893,7 +915,8 @@ def phase_train_cli(root):
     """The train entry point on the rawframe dataset under ``root``: the
     port's train CLI in-process with host and with device normalization,
     a resumed run, one profiled epoch. Returns the fused kernel's launches
-    in each case's run, by (dtype, N, H, W, Cin, Cm)."""
+    in each case's run, by (dtype, N, H, W, Cin, Cm), and each case's
+    epoch-2 losses resumed from ``epoch_1.pth``."""
     import math
 
     import numpy as np
@@ -912,7 +935,7 @@ def phase_train_cli(root):
               for name, shape, cm, _ in FUSED_SHAPES}
     expected = {shapes[name]: n * DATA_VIDEOS * TRAIN_EPOCHS
                 for name, n in VAL_LAUNCHES.items()}
-    launches = {}
+    launches, resumed_losses = {}, {}
     for case, device_norm in (('host_norm', False), ('device_norm', True)):
         config = write_train_config(root, device_norm)
         work = os.path.join(root, f'train_{case}')
@@ -1000,6 +1023,7 @@ def phase_train_cli(root):
                 f'{case}: resumed run {again.step} steps, log {tail}')
         require(max(rel) <= RESUME_TOL,
                 f'{case}: resumed losses differ by {rel} relative')
+        resumed_losses[case] = [r['loss'] for r in tail]
         del again
 
         # one more epoch of the same loop, profiled, without hooks
@@ -1055,11 +1079,254 @@ def phase_train_cli(root):
         print(f'train_cli profile {case}: ' + json.dumps(prof))
         del loop, model, fresh, step, train, loader
         torch.cuda.empty_cache()
+    return launches, resumed_losses
+
+
+def _quiet(fn, *args):
+    """``fn(*args)`` with its standard output captured; (result, text)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    return out, buf.getvalue()
+
+
+def worked_out_macs(shape):
+    """The flagship's convolution and FC multiply-adds in a test forward at
+    ``shape``, from each layer's shapes: every convolution's output
+    elements times its weight's fan-in per output (``in / groups * kH *
+    kW``), the output sizes read with forward hooks in train mode (where
+    each block calls its convolutions as modules) on the meta device, and
+    the FC's frames x in x out. The MVF taps are elementwise in the port."""
+    import torch
+    from mvfnet_tpu_torch.config import Config
+    from mvfnet_tpu_torch.models import build_recognizer
+    cfg = Config.fromfile(CONFIG)
+    model = build_recognizer(dict(cfg.model, dtype=cfg.compute_dtype),
+                             test_cfg=dict(average_clips=None))
+    model.to('meta').train()
+    macs = []
+
+    def hook(module, _, out):
+        w = module.weight
+        macs.append(out.numel() * w.shape[1] * w[0, 0].numel())
+
+    for m in model.modules():
+        if isinstance(m, torch.nn.Conv2d):
+            m.register_forward_hook(hook)
+    with torch.no_grad():
+        model(torch.zeros(shape, device='meta'), None, return_loss=False)
+    fc = model.cls_head.new_fc
+    return sum(macs) + shape[0] * shape[1] * fc.in_features * fc.out_features
+
+
+def _msgpack_round_trip(root, ann):
+    """The seeded model of phase 5 as a ``.msgpack``, scored by the test
+    CLI against phase 5's ``.pth`` scores; returns its path."""
+    import pickle
+
+    import numpy as np
+    import torch
+    from mvfnet_tpu_torch.config import Config
+    from mvfnet_tpu_torch.tools import test_recognizer as cli
+    from mvfnet_tpu_torch.utils.checkpoint import (load_checkpoint,
+                                                   save_msgpack_checkpoint)
+    pth = os.path.join(root, 'mvf_r50_random.pth')
+    path = os.path.join(root, 'mvf_r50_random.msgpack')
+    model = cli.build_model(Config.fromfile(CONFIG), True, 'prob')
+    model.load_state_dict(torch.load(pth, weights_only=True))
+    t0 = time.perf_counter()
+    save_msgpack_checkpoint(path, model, meta={'epoch': 0, 'iter': 0})
+    save_s = time.perf_counter() - t0
+    load_s = {}
+    for name, ckpt in (('pth', pth), ('msgpack', path)):
+        t0 = time.perf_counter()
+        load_checkpoint(ckpt)
+        load_s[name] = time.perf_counter() - t0
+    out = os.path.join(root, 'scores_msgpack.pkl')
+    run_cli(write_config(root, ann, True), path, out)
+    scores = {}
+    for name, pkl in (('msgpack', out), ('pth', os.path.join(
+            root, 'scores_device_norm.pkl'))):
+        with open(pkl, 'rb') as f:
+            scores[name] = np.stack(pickle.load(f))
+    err = float(np.abs(scores['msgpack'] - scores['pth']).max())
+    print('checkpoints: ' + json.dumps(dict(
+        pth_bytes=os.path.getsize(pth), msgpack_bytes=os.path.getsize(path),
+        load_s=load_s, msgpack_save_s=save_s, scores_max_abs_err=err,
+        card=card_line())))
+    require(err <= DATA_TOL, f'.msgpack vs .pth scores: max abs err {err} '
+                             f'> {DATA_TOL}')
+    return path
+
+
+def _resume_from_msgpack(root, want_losses):
+    """Phase 6's device-normalization run after epoch 1, written as a
+    ``.msgpack`` with its SGD state in optax's layout, resumes the train
+    CLI; its epoch-2 losses against the ``.pth`` resume's."""
+    import torch
+    from mvfnet_tpu_torch.config import Config
+    from mvfnet_tpu_torch.data import build_dataset
+    from mvfnet_tpu_torch.engine.train_loop import TrainLoop
+    from mvfnet_tpu_torch.models import build_recognizer
+    from mvfnet_tpu_torch.tools import train_recognizer as cli
+    from mvfnet_tpu_torch.utils.checkpoint import save_msgpack_checkpoint
+    config = os.path.join(root, 'train_1.py')
+    cfg = Config.fromfile(config)
+    cfg.resume_from = os.path.join(root, 'train_device_norm', 'epoch_1.pth')
+    model = build_recognizer(dict(cfg.model, dtype=cfg.compute_dtype),
+                             test_cfg=cfg.get('test_cfg'))
+    loop = TrainLoop(model, build_dataset(dict(cfg.data['train'])), cfg)
+    path = os.path.join(root, 'epoch_1.msgpack')
+    save_msgpack_checkpoint(path, loop.model, loop.optimizer,
+                            meta={'epoch': loop.epoch, 'iter': loop.step})
+    del loop, model
+    resumed = os.path.join(root, 'resumed_msgpack')
+    again = cli.main([config, '--work_dir', resumed, '--resume_from', path])
+    tail, _ = train_log(resumed)
+    got = [r['loss'] for r in tail]
+    rel = [abs(a - b) / abs(b) for a, b in zip(got, want_losses)]
+    print('resume_msgpack: ' + json.dumps(dict(
+        msgpack_bytes=os.path.getsize(path), loss=got, pth_loss=want_losses,
+        rel=rel)))
+    require(again.step == TRAIN_EPOCHS * again.iters_per_epoch
+            and len(got) == len(want_losses) == again.iters_per_epoch
+            and [r['epoch'] for r in tail] == [2] * len(got),
+            f'.msgpack resume: {again.step} steps, log {tail}')
+    require(max(rel) <= RESUME_TOL,
+            f'.msgpack resume: losses differ by {rel} relative')
+    del again
+    torch.cuda.empty_cache()
+
+
+def _features(root, ann, ckpt):
+    """The feature CLI in-process on the videos; returns the fused
+    kernel's launches in its timed pass, by (dtype, N, H, W, Cin, Cm)."""
+    import math
+
+    import numpy as np
+    import torch
+    from mvfnet_tpu_torch.config import Config
+    from mvfnet_tpu_torch.data import build_dataset, device_norm_cfg
+    from mvfnet_tpu_torch.engine.train_step import make_eval_step
+    from mvfnet_tpu_torch.ops import fused_block as fb
+    from mvfnet_tpu_torch.tools import feature_extractor
+    from mvfnet_tpu_torch.tools import test_recognizer as test_cli
+    from mvfnet_tpu_torch.utils.checkpoint import load_weights
+
+    config = write_config(root, ann, True)
+    out = os.path.join(root, 'features.json')
+    args = [config, ckpt, '--fcn_testing', '--out', out]
+    _quiet(feature_extractor.main, args)                # warm-up pass
+    torch.cuda.synchronize()
+    fb.bottleneck_eval_cuda.launches = 0
+    fb.bottleneck_eval_cuda.launches_by_shape.clear()
+    t0 = time.perf_counter()
+    _quiet(feature_extractor.main, args)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(fb.bottleneck_eval_cuda.launches_by_shape)
+    total = fb.bottleneck_eval_cuda.launches
+    expected = {('bfloat16',) + shape + (cm,): per_video * DATA_VIDEOS
+                for _, shape, cm, per_video in FUSED_SHAPES if per_video}
+    require(launches == expected and total == 5 * DATA_VIDEOS,
+            f'features: fused kernel launches {launches} ({total} in all), '
+            f'expected {expected}')
+    with open(out) as f:
+        written = json.load(f)
+    dim = 2048
+    require(list(written) == [f'video_{i}' for i in range(DATA_VIDEOS)]
+            and all(len(v) == VIEWS * dim and all(map(math.isfinite, v))
+                    for v in written.values()),
+            f'features: {len(written)} entries of '
+            f'{sorted({len(v) for v in written.values()})} floats')
+    prof = device_profile(lambda: _quiet(feature_extractor.main, args))
+    require('busy_ms' in prof, f'features profile: {prof}')
+
+    # the FC of each video's rows against the eval step's per-clip logits
+    cfg = Config.fromfile(config)
+    model = test_cli.build_model(cfg, True, None)
+    load_weights(model, ckpt)
+    step = make_eval_step(model, norm_cfg=device_norm_cfg(
+        cfg.data['test']['pipeline']))
+    dataset = build_dataset(dict(cfg.data['test']))
+    err, tol = 0.0, math.inf
+    for i, rows in enumerate(written.values()):
+        logits = step(model, dataset[i]['img_group'][None]).float()
+        feats = torch.tensor(rows, device=logits.device).reshape(VIEWS, dim)
+        with torch.inference_mode():
+            fc = model.cls_head.fc(feats)
+        err = max(err, (fc - logits).abs().max().item())
+        tol = min(tol, 3e-2 * logits.abs().max().item())
+    print('features: ' + json.dumps(dict(
+        videos=DATA_VIDEOS, rows_per_video=VIEWS, dim=dim, pass_s=secs,
+        videos_per_s=DATA_VIDEOS / secs, json_bytes=os.path.getsize(out),
+        device_busy_ms=prof['busy_ms'], device_idle_share=prof['idle_share'],
+        profiled_pass_ms=prof['wall_ms'], fused_launches=total,
+        fc_vs_logits_max_abs_err=err, tol=tol, card=card_line())))
+    print('features profile: ' + json.dumps(prof))
+    require(err <= tol, f'features: FC of the features vs the per-clip '
+                        f'logits {err} > {tol}')
+    del model, step
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _host_tools(root, ann):
+    """``count_flops`` on the flagship, ``report_accuracy`` on phase 5's
+    two score pickles."""
+    import pickle
+    import re
+
+    import numpy as np
+    from mvfnet_tpu_torch.tools import count_flops, report_accuracy
+    stats, text = _quiet(count_flops.main, [CONFIG])
+    macs = worked_out_macs(stats['shape'])
+    print('count_flops: ' + json.dumps(dict(
+        shape=stats['shape'], params=stats['params'], macs=stats['macs'],
+        worked_out_macs=macs, gmacs=stats['gmacs'])))
+    require(stats['params'] == 24342416 and stats['macs'] == macs,
+            f'count_flops: {stats}, worked out {macs} MACs')
+    pkls = [os.path.join(root, f'scores_{case}.pkl')
+            for case in ('host_norm', 'device_norm')]
+    arrays = []
+    for pkl in pkls:
+        with open(pkl, 'rb') as f:
+            arrays.append(np.stack(pickle.load(f)))
+    labels = list(range(DATA_VIDEOS))
+    for softmax in (False, True):
+        args = ['--scores', *pkls, '--coefficients', '1', '1',
+                '--datalist', ann] + (['--apply_softmax'] if softmax else [])
+        _, text = _quiet(report_accuracy.main, args)
+        printed = dict(re.findall(r'^(Top-1|Top-5|Mean Class) Accuracy '
+                                  r'= (\d+\.\d\d)$', text, re.M))
+        fused = 0
+        for a in arrays:
+            if softmax:
+                e = np.exp(a - a.max(1, keepdims=True))
+                a = e / e.sum(1, keepdims=True)
+            fused = fused + a
+        want = numpy_accuracy(fused, labels)
+        require(printed == {k: f'{v * 100:.02f}' for k, v in zip(
+            ('Top-1', 'Top-5', 'Mean Class'), want)},
+            f'report_accuracy softmax={softmax}: printed {printed}, '
+            f'numpy {want}')
+        print(f'report_accuracy softmax={softmax}: {printed}')
+
+
+def phase_entry_points(root, ann, resumed_losses):
+    """Phase 7 on the dataset and checkpoints of phases 5 and 6; returns
+    the fused kernel's launches in the feature CLI's timed pass."""
+    ckpt = _msgpack_round_trip(root, ann)
+    _resume_from_msgpack(root, resumed_losses['device_norm'])
+    launches = _features(root, ann, ckpt)
+    _host_tools(root, ann)
     return launches
 
 
 def phase_rawframes():
-    """Phases 5 and 6 on one rawframe dataset in a temporary directory;
+    """Phases 5, 6 and 7 on one rawframe dataset in a temporary directory;
     returns their fused-kernel launches by case and shape."""
     import tempfile
 
@@ -1072,7 +1339,10 @@ def phase_rawframes():
               f'{DATA_HW[1]}x{DATA_HW[0]}, mean JPEG {frame_bytes:.0f} bytes, '
               f'written in {time.perf_counter() - t0:.3f} s with cv2 '
               f'{cv2.__version__}')
-        return phase_data(root, ann), phase_train_cli(root)
+        data_launches = phase_data(root, ann)
+        train_launches, resumed_losses = phase_train_cli(root)
+        feature_launches = phase_entry_points(root, ann, resumed_losses)
+        return data_launches, train_launches, feature_launches
 
 
 def main():
@@ -1101,7 +1371,7 @@ def main():
         records = phase_kernel()
         launches = phase_slice()
         phase_train()
-        data_launches, train_launches = phase_rawframes()
+        data_launches, train_launches, feature_launches = phase_rawframes()
         for r in records:
             key = (r['dtype'],) + tuple(r['shape'])
             r['launches'] = launches.get(key, 0)
@@ -1109,6 +1379,7 @@ def main():
                                  for case, n in data_launches.items()}
             r['launches_train_cli'] = {case: n.get(key, 0)
                                        for case, n in train_launches.items()}
+            r['launches_features'] = feature_launches.get(key, 0)
     except SmokeFailure as e:
         print(f'chip_smoke: FAILED: {e}', file=sys.stderr)
         return 1

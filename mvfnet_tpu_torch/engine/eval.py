@@ -36,15 +36,14 @@ def evaluate_dataset(model: torch.nn.Module, dataset,
                      device: Union[None, str, torch.device] = None
                      ) -> np.ndarray:
     """Run inference over the whole dataset; returns (N, K) scores in
-    dataset order, on the host.
+    dataset order, on the host, or with ``extract_feat`` the features of
+    ``model.forward_extract_feat``, (N, rows * C): each video's rows (its
+    clip volumes, or its frames), C features each, in one row.
 
     ``norm_cfg`` is the pipeline's ``Normalize(device=True)`` node
     (``data.device_norm_cfg``), None when the host normalizes. ``device``
     is CUDA unless the caller asks for the CPU.
     """
-    if extract_feat:
-        raise NotImplementedError('extract_feat needs forward_extract_feat, '
-                                  'which is not ported yet (ROADMAP.md, A7)')
     if getattr(getattr(model, 'backbone', None), 'quant', None):
         raise NotImplementedError('quantized backbones are not ported yet '
                                   '(ROADMAP.md, A14)')
@@ -57,7 +56,8 @@ def evaluate_dataset(model: torch.nn.Module, dataset,
                              pad=True)
     loader = DataLoader(dataset, videos_per_gpu, sampler,
                         num_workers=workers_per_gpu, drop_last=False)
-    step = _cached_eval_step(model, _freeze(norm_cfg), device)
+    step = _cached_eval_step(model, extract_feat, _freeze(norm_cfg),
+                             device)
     # a cached step finds the model as the caller left it: a train loop
     # evaluating between epochs leaves it in train mode
     was_training = model.training
@@ -68,7 +68,10 @@ def evaluate_dataset(model: torch.nn.Module, dataset,
     arrays = (np.asarray(batch['img_group']) for batch in loader)
     try:
         for bi, imgs in enumerate(prefetch_to_device(arrays, device)):
-            out.append(step(model, imgs))
+            res = step(model, imgs)
+            # features come as (videos * rows, C): one row a video
+            out.append(res.reshape(imgs.shape[0], -1) if extract_feat
+                       else res)
             if progress and rank == 0 and (bi % 20 == 0
                                            or bi == n_batches - 1):
                 print(f'\r[eval] {bi + 1}/{n_batches}', end='', flush=True)
@@ -107,18 +110,20 @@ def _freeze(obj):
 _EVAL_STEP_CACHE: Dict[Any, Any] = {}
 
 
-def _cached_eval_step(model: torch.nn.Module, norm_key, device: torch.device):
-    """One eval step per (model, norm, device), reused by repeated evals.
+def _cached_eval_step(model: torch.nn.Module, extract_feat: bool, norm_key,
+                      device: torch.device):
+    """One eval step per (model, mode, norm, device), reused by repeated
+    evals; the mode is scores or features.
 
     The entry holds a strong reference to ``model``: the key uses
     ``id(model)``, and without it a new model allocated at a collected
     model's address would reuse a stale step."""
-    key = (id(model), norm_key, str(device))
+    key = (id(model), extract_feat, norm_key, str(device))
     if key not in _EVAL_STEP_CACHE:
         norm_cfg = ({k: (list(v) if isinstance(v, tuple) else v)
                      for k, v in norm_key} if norm_key else None)
-        _EVAL_STEP_CACHE[key] = (model, make_eval_step(model, norm_cfg,
-                                                       device))
+        _EVAL_STEP_CACHE[key] = (model, make_eval_step(
+            model, norm_cfg, device, extract_feat=extract_feat))
     return _EVAL_STEP_CACHE[key][1]
 
 

@@ -126,13 +126,18 @@ def frozen_prefixes_from_backbone(backbone_cfg: Dict[str, Any]) -> tuple:
 
 class ClippedSGD(torch.optim.SGD):
     """``torch.optim.SGD`` whose groups carry ``label`` and ``lr_mult``, and
-    which clips the gradients of ``clip_params`` before its step."""
+    which clips the gradients of ``clip_params`` before its step.
+    ``label_weight_decay`` is each trained label's weight decay, a label
+    without parameters included: the JAX package's chain has a state for
+    every label (``utils.checkpoint.optax_state_from_optimizer``)."""
 
     def __init__(self, groups, clip_params: Iterable[torch.nn.Parameter],
-                 max_norm: Optional[float], **defaults):
+                 max_norm: Optional[float],
+                 label_weight_decay: Dict[str, float], **defaults):
         super().__init__(groups, **defaults)
         self.clip_params = list(clip_params)
         self.max_norm = max_norm
+        self.label_weight_decay = dict(label_weight_decay)
 
     def clip_grads(self) -> torch.Tensor:
         """Scale every gradient by ``min(1, max_norm / (norm + 1e-6))``
@@ -181,5 +186,8 @@ def build_optimizer(model: torch.nn.Module,
             raise NotImplementedError('only the L2 norm clip is ported')
         max_norm = grad_clip['max_norm']
     return ClippedSGD(groups, model.parameters(), max_norm,
-               lr=lr_schedule(0), momentum=cfg.get('momentum', 0.0),
-               weight_decay=weight_decay, nesterov=cfg.get('nesterov', False))
+                      {label: weight_decay * mult[1]
+                       for label, mult in mults.items()},
+                      lr=lr_schedule(0), momentum=cfg.get('momentum', 0.0),
+                      weight_decay=weight_decay,
+                      nesterov=cfg.get('nesterov', False))

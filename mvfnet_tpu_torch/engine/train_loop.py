@@ -10,10 +10,13 @@ frames go up through one ``prefetch.PinnedStager`` (reused across epochs)
 while the step before computes, and the LR schedule and the clip live in
 the step.
 
+``resume_from`` and ``load_from`` take the port's ``.pth`` checkpoints and
+the JAX package's ``.msgpack`` ones (weights, optax state and the
+``.meta.json`` sidecar).
+
 Refused with ``NotImplementedError``, each naming its ``ROADMAP.md`` item:
-per-shard BatchNorm (``local_bn``) and more than one process (A8),
-activation checkpointing (``with_cp``, A11) and ``.msgpack`` checkpoints
-(A6).
+per-shard BatchNorm (``local_bn``) and more than one process (A8) and
+activation checkpointing (``with_cp``, A11).
 """
 
 from __future__ import annotations
@@ -28,7 +31,8 @@ import torch
 
 from ..data import build_dataloader, build_dataset, device_norm_cfg
 from ..utils.checkpoint import (import_torch_state_dict, load_checkpoint,
-                                load_torch_state_dict, save_checkpoint)
+                                load_optax_state, load_torch_state_dict,
+                                load_weights, save_checkpoint)
 from ..utils.logging import get_root_logger
 from ..utils.metrics import top_k_accuracy
 from .optim import (build_lr_schedule, build_optimizer,
@@ -244,11 +248,9 @@ class TrainLoop:
 
         resume_from = cfg.get('resume_from')
         load_from = cfg.get('load_from')
-        if resume_from and (resume_from.endswith('.msgpack')
-                            or os.path.exists(resume_from)):
+        if resume_from and os.path.exists(resume_from):
             self.resume(resume_from)
-        elif load_from and (load_from.endswith('.msgpack')
-                            or os.path.exists(load_from)):
+        elif load_from and os.path.exists(load_from):
             self.load_weights(load_from)
 
     @property
@@ -277,19 +279,24 @@ class TrainLoop:
 
     def resume(self, path: str) -> None:
         """Weights (every key), SGD state, epoch and step of a checkpoint
-        this loop wrote."""
+        this loop wrote (``.pth``) or the JAX package's loop wrote
+        (``.msgpack``: the optax state's momentum traces, epoch and step
+        from the sidecar, as ``mvfnet_tpu/engine/train_loop.py:296-309``
+        resumes)."""
         state_dict, opt_state, meta = load_checkpoint(path)
         self.model.load_state_dict(state_dict, strict=True)
-        if opt_state:
+        step = meta.get('iter', 0)
+        if opt_state and path.endswith('.msgpack'):
+            load_optax_state(self.model, self.optimizer, opt_state, step)
+        elif opt_state:
             self.optimizer.load_state_dict(opt_state)
         self.epoch = meta.get('epoch', 0)
-        self.iter = self.train_step.state.step = meta.get('iter', 0)
+        self.iter = self.train_step.state.step = step
         self.logger.info('resumed from %s (epoch %d, iter %d)', path,
                          self.epoch, self.step)
 
     def load_weights(self, path: str) -> None:
-        import_torch_state_dict(self.model, load_checkpoint(path)[0],
-                                logger=self.logger)
+        load_weights(self.model, path, logger=self.logger)
         self.logger.info('loaded weights from %s', path)
 
     # ------------------------------------------------------------------ run

@@ -35,9 +35,10 @@ def _to_device(x, device: torch.device) -> torch.Tensor:
 
 def make_eval_step(model: torch.nn.Module,
                    norm_cfg: Optional[Dict[str, Any]] = None,
-                   device: Union[None, str, torch.device] = None
-                   ) -> Callable:
-    """Build ``eval_step(model, imgs) -> scores`` for dense testing.
+                   device: Union[None, str, torch.device] = None,
+                   extract_feat: bool = False) -> Callable:
+    """Build ``eval_step(model, imgs) -> scores`` for dense testing, or
+    ``-> features`` (``model.forward_extract_feat``) with ``extract_feat``.
 
     ``imgs`` is a ``(B, S, H, W, C)`` array or tensor (uint8 when the
     pipeline deferred ``Normalize`` to the device, ``norm_cfg['device']``).
@@ -52,6 +53,8 @@ def make_eval_step(model: torch.nn.Module,
         with torch.inference_mode():
             imgs = maybe_device_normalize(imgs, norm_cfg,
                                           model.compute_dtype)
+            if extract_feat:
+                return model.forward_extract_feat(imgs)
             return model(imgs, None, return_loss=False)
 
     return eval_step

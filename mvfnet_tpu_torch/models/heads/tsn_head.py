@@ -7,11 +7,13 @@ Inputs are channels-last, as in the JAX package:
   before the FC (a 1x1x1 conv is linear per position, so the mean of the
   class map equals the FC of the mean)
 
-The FC is ``new_fc``, the reference's name. Dropout acts only in train mode
-on the standard path, with the mask drawn from the caller's generator
-(``flax.linen.Dropout`` semantics: keep with probability 1-p, scale the kept
-by 1/(1-p)). The loss is cross-entropy in at least f32. Only the average is
-ported (``spatial_type='avg'``, avg consensus).
+With ``extract_feat`` the head returns the pooled features, ``(M', C)`` or
+``(M, C)``, and skips the FC. The FC is ``new_fc``, the reference's name.
+Dropout acts only in train mode on the standard path, with the mask drawn
+from the caller's generator (``flax.linen.Dropout`` semantics: keep with
+probability 1-p, scale the kept by 1/(1-p)). The loss is cross-entropy in
+at least f32. Only the average is ported (``spatial_type='avg'``, avg
+consensus).
 """
 
 from __future__ import annotations
@@ -34,7 +36,8 @@ class TSNClsHead(nn.Module):
                  with_avg_pool: bool = False, temporal_feature_size: int = 1,
                  spatial_feature_size: int = 1, dropout_ratio: float = 0.8,
                  in_channels: int = 1024, num_classes: int = 101,
-                 init_std: float = 0.001, fcn_testing: bool = False):
+                 init_std: float = 0.001, fcn_testing: bool = False,
+                 extract_feat: bool = False):
         super().__init__()
         ctype = (consensus_cfg or {'type': 'avg'})['type']
         if ctype != 'avg':
@@ -44,6 +47,7 @@ class TSNClsHead(nn.Module):
                 f'spatial_type {spatial_type!r} is not ported yet')
         self.dropout_ratio = dropout_ratio
         self.init_std = init_std
+        self.extract_feat = extract_feat
         self.new_fc = nn.Linear(in_channels, num_classes)
         self.consensus = SimpleConsensus('avg', dim=1)
 
@@ -74,8 +78,11 @@ class TSNClsHead(nn.Module):
     def forward(self, x: torch.Tensor, num_seg: int,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if x.ndim == 5:
-            return self.fc(x.mean(dim=(1, 2, 3)))
+            feat = x.mean(dim=(1, 2, 3))
+            return feat if self.extract_feat else self.fc(feat)
         feat = self.dropout(x.mean(dim=(1, 2)), generator)
+        if self.extract_feat:
+            return feat
         score = self.fc(feat)
         score = score.reshape((-1, num_seg) + score.shape[1:])
         return self.consensus(score)[:, 0]

@@ -10,8 +10,10 @@ video goes through the backbone as one batch; with ``fcn_testing`` the
 feature maps regroup into ``(clips*crops, T, h, w, C)`` volumes that the
 head averages over (T, H, W); clip scores are then averaged per video as
 ``test_cfg['average_clips']`` says ('prob' = softmax then mean, 'score' =
-mean, None = per-clip scores). Params are fp32; the compute dtype is
-``dtype`` (the config's ``compute_dtype``), or the params' dtype when None.
+mean, None = per-clip scores). ``forward_extract_feat`` stops before the
+FC: pooled backbone features per clip volume or per frame. Params are
+fp32; the compute dtype is ``dtype`` (the config's ``compute_dtype``), or
+the params' dtype when None.
 """
 
 from __future__ import annotations
@@ -139,6 +141,21 @@ class Recognizer2D(nn.Module):
         else:
             cls_score = self.cls_head(x, num_frames // temporal_pool)
         return self.average_clip(cls_score, num_batch)
+
+    def forward_extract_feat(self, imgs: torch.Tensor) -> torch.Tensor:
+        """Pooled features instead of logits (the reference's
+        ``feature_extractor.py``): with ``fcn_testing`` and a temporal
+        module, ``(B*clips*crops, C)``, each clip volume averaged over (T,
+        H, W); otherwise ``(B*frames, C)``, each frame averaged over (H,
+        W)."""
+        imgs = imgs.reshape((-1,) + tuple(imgs.shape[2:]))
+        x = to_nhwc(self.extract_feat(imgs))           # (M, h, w, C)
+        temporal_pool = imgs.shape[0] // x.shape[0]
+        if self.module_cfg and self.fcn_testing:
+            n_seg = self.module_cfg['n_segment'] // temporal_pool
+            x = x.reshape((-1, n_seg) + tuple(x.shape[1:]))
+            return x.mean(dim=(1, 2, 3))
+        return x.mean(dim=(1, 2))
 
     def average_clip(self, cls_score: torch.Tensor,
                      num_batch: int = 1) -> torch.Tensor:

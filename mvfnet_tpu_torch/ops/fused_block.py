@@ -15,8 +15,9 @@ Layouts follow the JAX package: x NHWC ``(N, H, W, Cin)``, ``w1 (Cin, Cm)``,
 ``(1, C)``. The kernel reads the weights output-channel-major: weights that
 are views of such storage (``out_major``, as ``Bottleneck`` caches them)
 reach it without a copy, others are copied at each call.
-``bottleneck_eval`` takes the plain version for a CPU tensor and the kernel
-for a CUDA tensor; it never falls back on failure.
+``bottleneck_eval`` takes the plain version for a CPU tensor (or a meta
+one, which only counts shapes and FLOPs) and the kernel for a CUDA tensor;
+it never falls back on failure.
 """
 
 from __future__ import annotations
@@ -153,9 +154,9 @@ bottleneck_eval_cuda.launches_by_shape = collections.Counter()
 
 
 def bottleneck_eval(x, w1, b1, w2, b2, w3, b3):
-    """Dispatch: the plain version for a CPU tensor, the kernel for a CUDA
-    tensor (``FORCE='plain'`` runs the plain version on the card, for
-    comparison only)."""
-    if x.device.type == 'cpu' or FORCE == 'plain':
+    """Dispatch: the plain version for a CPU or meta tensor, the kernel for
+    a CUDA tensor (``FORCE='plain'`` runs the plain version on the card,
+    for comparison only)."""
+    if x.device.type in ('cpu', 'meta') or FORCE == 'plain':
         return bottleneck_eval_plain(x, w1, b1, w2, b2, w3, b3)
     return bottleneck_eval_cuda(x, w1, b1, w2, b2, w3, b3)

@@ -1,12 +1,13 @@
 """Dense-test CLI of the port (counterpart of the root ``test_recognizer.py``).
 
-    python -m mvfnet_tpu_torch.tools.test_recognizer CONFIG CHECKPOINT.pth \\
+    python -m mvfnet_tpu_torch.tools.test_recognizer CONFIG CHECKPOINT \\
         [--out scores.pkl] [--fcn_testing] [--average-clips prob|score] \\
         [--videos_per_gpu N] [--device cuda|cpu]
 
 Builds the model and the config's test dataset, loads a ``.pth`` checkpoint
 through the non-strict importer (``utils.checkpoint.import_torch_state_dict``,
-the JAX CLI's ``import_torch_weights`` rules) and logs its report, runs
+the JAX CLI's ``import_torch_weights`` rules) or a ``.msgpack`` one of the
+JAX package as its ``from_state_dict`` does, and logs the report, runs
 ``engine.eval.evaluate_dataset`` on the device, writes the scores as a
 pickled list of ``(K,)`` arrays, and prints Top-1 / Top-5 / mean-class
 accuracy in the JAX CLI's format. The compute dtype is the config's
@@ -26,7 +27,8 @@ from typing import Any, Dict, Optional, Sequence
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(description='Test an action recognizer')
     parser.add_argument('config', help='config file path')
-    parser.add_argument('checkpoint', help='checkpoint file (.pth)')
+    parser.add_argument('checkpoint', help='checkpoint file (.pth torch or '
+                        '.msgpack of the JAX package)')
     parser.add_argument('--out', default=None, help='output pkl of scores')
     parser.add_argument('--fcn_testing', action='store_true',
                         help='fully-convolutional dense testing')
@@ -46,9 +48,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     return parser.parse_args(argv)
 
 
-def build_model(cfg, fcn_testing: bool, average_clips: str,
-                view_chunk: Optional[int] = None):
-    """The config's recognizer for dense testing, in its compute dtype."""
+def build_model(cfg, fcn_testing: bool, average_clips: Optional[str],
+                view_chunk: Optional[int] = None, extract_feat: bool = False):
+    """The config's recognizer for dense testing, in its compute dtype; with
+    ``extract_feat`` its head returns pooled features."""
     from ..models import build_recognizer
     if (cfg.model.get('backbone') or {}).get('quant'):
         raise NotImplementedError('quantized backbones and int8 calibration '
@@ -57,7 +60,8 @@ def build_model(cfg, fcn_testing: bool, average_clips: str,
                      dtype=cfg.get('compute_dtype'))
     if 'cls_head' in model_cfg:
         model_cfg['cls_head'] = dict(model_cfg['cls_head'],
-                                     fcn_testing=fcn_testing)
+                                     fcn_testing=fcn_testing,
+                                     extract_feat=extract_feat)
     test_cfg = dict(cfg.get('test_cfg') or {}, average_clips=average_clips)
     if view_chunk:
         test_cfg['view_chunk'] = view_chunk
@@ -65,18 +69,14 @@ def build_model(cfg, fcn_testing: bool, average_clips: str,
 
 
 def load_checkpoint(model, checkpoint: str, logger=None) -> Dict[str, Any]:
-    """Load a ``.pth`` checkpoint into ``model`` non-strictly, as the JAX
-    CLI does; logs and returns the importer's report."""
-    if not checkpoint.endswith('.pth'):
-        raise NotImplementedError(
-            f'{checkpoint}: only .pth checkpoints load in the port; the '
-            '.msgpack loader is not ported yet (ROADMAP.md, A6)')
-    from ..utils.checkpoint import (import_torch_state_dict,
-                                    load_torch_state_dict)
+    """Load a checkpoint into ``model`` as the JAX CLI's
+    ``load_model_variables`` does (``utils.checkpoint.load_weights``: a
+    ``.pth`` non-strictly, a ``.msgpack`` with every model entry required);
+    logs and returns the import report."""
+    from ..utils.checkpoint import load_weights
     from ..utils.logging import get_root_logger
     logger = logger or get_root_logger()
-    report = import_torch_state_dict(model, load_torch_state_dict(checkpoint),
-                                     logger=logger)
+    report = load_weights(model, checkpoint, logger=logger)
     logger.info('loaded %s: %s', checkpoint, ', '.join(
         f'{len(v)} {k}' for k, v in report.items()))
     return report

@@ -1,14 +1,15 @@
 """Train CLI of the port (counterpart of the root ``train_recognizer.py``).
 
     python -m mvfnet_tpu_torch.tools.train_recognizer CONFIG \\
-        [--work_dir DIR] [--resume_from DIR/epoch_N.pth] [--validate] \\
+        [--work_dir DIR] [--resume_from CKPT] [--validate] \\
         [--seed N] [--bf16] [--autoscale-lr] [--profile N] \\
         [--device cuda|cpu]
 
 Builds the config's recognizer in its ``compute_dtype`` (bf16 with
 ``--bf16``; parameters stay float32) and its train dataset, and runs
 ``engine.train_loop.train_network`` on one card: ``epoch_N.pth`` and
-``latest.pth`` checkpoints and ``train.log`` go to the work directory, and
+``latest.pth`` checkpoints and ``train.log`` go to the work directory
+(``--resume_from`` also takes the JAX package's ``.msgpack`` ones), and
 ``--validate`` evaluates ``data.val`` every ``eval_interval`` epochs.
 ``--profile N`` traces iterations 1..N with ``torch.profiler`` into
 ``WORK_DIR/profile``. It runs on CUDA unless ``--device cpu`` is given, and

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 a small train step that must not launch them, a bf16 train loop epoch whose
-mid-train evaluation must, and the eval loop's pinned-memory prefetch.
+mid-train evaluation must, a feature-extraction pass that must, and the
+eval loop's pinned-memory prefetch.
 
 Every test here carries the ``cuda`` marker and skips without a GPU. This
 file imports neither JAX nor the JAX package, so it also runs on a machine
@@ -205,6 +206,66 @@ def test_train_loop_epoch_in_bf16_evaluates_through_the_kernel(cuda,
     assert grown == {('bfloat16', 2, 16, 16, 256, 64): 2 * 4,
                      ('bfloat16', 2, 8, 8, 512, 128): 3 * 4}
     assert loop.eval_history[0]['scores'].shape == (4, 2)
+
+
+def test_feature_pass_launches_the_kernel_and_matches_plain(cuda,
+                                                           tmp_path):
+    """``evaluate_dataset(extract_feat=True)`` of a bf16 R50+MVF with
+    ``fcn_testing`` on 3 tiny rawframe videos (uint8 frames normalized on
+    the card): one row of 2 clip volumes x 2048 a video, 2 + 3 fused
+    launches a video, and features within 3e-2 of the largest of the same
+    pass with the kernel's plain version."""
+    import cv2
+    from mvfnet_tpu_torch.data import build_dataset
+    from mvfnet_tpu_torch.engine.eval import evaluate_dataset
+    rng = np.random.RandomState(1)
+    for v in range(3):
+        (tmp_path / f'v{v}').mkdir()
+        for f in range(8):
+            cv2.imwrite(str(tmp_path / f'v{v}' / f'img_{f + 1:05}.jpg'),
+                        rng.randint(0, 255, (64, 80, 3), np.uint8))
+    (tmp_path / 'ann.txt').write_text(
+        ''.join(f'v{v} 8 {v}\n' for v in range(3)))
+    norm = dict(mean=[123.675, 116.28, 103.53], std=[58.395, 57.12, 57.375],
+                to_rgb=True, device=True)
+    dataset = build_dataset(dict(
+        type='RawFramesDataset', ann_file=str(tmp_path / 'ann.txt'),
+        data_root=str(tmp_path), test_mode=True, pipeline=[
+            dict(type='SampleFrames', clip_len=2, frame_interval=2,
+                 num_clips=2),
+            dict(type='FrameSelector'),
+            dict(type='Resize', scale=(64, 64), keep_ratio=False),
+            dict(type='Normalize', **norm),
+            dict(type='FormatShape', input_format='NHWC'),
+            dict(type='Collect', keys=['img_group', 'label'],
+                 meta_keys=[])]))
+    model = build_recognizer(dict(
+        type='Recognizer2D', fcn_testing=True,
+        backbone=dict(type='ResNet', depth=50, out_indices=(3,),
+                      norm_eval=False),
+        cls_head=dict(type='TSNClsHead', spatial_type='avg',
+                      dropout_ratio=0.5, in_channels=2048, init_std=0.01,
+                      num_classes=3, extract_feat=True),
+        module_cfg=dict(type='MVF', n_segment=2, alpha=0.125,
+                        mvf_freq=(0, 0, 1, 1), mode='THW'),
+        dtype='bfloat16'), test_cfg=dict(average_clips=None))
+    model.init_weights(torch.Generator().manual_seed(0), randomize_bn=True)
+    before = dict(fb.bottleneck_eval_cuda.launches_by_shape)
+    feats = evaluate_dataset(model, dataset, extract_feat=True,
+                             norm_cfg=norm)
+    grown = {k: v - before.get(k, 0) for k, v in
+             fb.bottleneck_eval_cuda.launches_by_shape.items()
+             if v != before.get(k, 0)}
+    assert grown == {('bfloat16', 4, 16, 16, 256, 64): 2 * 3,
+                     ('bfloat16', 4, 8, 8, 512, 128): 3 * 3}
+    assert feats.shape == (3, 2 * 2048) and np.isfinite(feats).all()
+    fb.FORCE = 'plain'
+    try:
+        plain = evaluate_dataset(model, dataset, extract_feat=True,
+                                 norm_cfg=norm)
+    finally:
+        fb.FORCE = None
+    assert np.abs(feats - plain).max() <= 3e-2 * np.abs(plain).max()
 
 
 def test_prefetch_stages_through_two_pinned_buffers(cuda):

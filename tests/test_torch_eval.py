@@ -28,6 +28,7 @@ from mvfnet_tpu.engine.eval import evaluate_dataset as jax_evaluate
 from mvfnet_tpu.engine.eval import reorder_rank_strided as jax_reorder
 from mvfnet_tpu.models import build_recognizer as jax_build
 from mvfnet_tpu.parallel import make_mesh
+from mvfnet_tpu.utils.checkpoint import save_checkpoint as jax_save
 from mvfnet_tpu_torch.config import Config
 from mvfnet_tpu_torch.data import build_dataset
 from mvfnet_tpu_torch.engine.eval import evaluate_dataset, reorder_rank_strided
@@ -143,8 +144,8 @@ def test_evaluate_dataset_edges(setup, tmp_path):
     empty = build_dataset(dict(dataset_cfg(root, False),
                                ann_file=str(tmp_path / 'empty.txt')))
     assert evaluate_dataset(model, empty, device='cpu').shape == (0, 0)
-    with pytest.raises(NotImplementedError, match='A7'):
-        evaluate_dataset(model, empty, extract_feat=True, device='cpu')
+    assert evaluate_dataset(model, empty, extract_feat=True,
+                            device='cpu').shape == (0, 0)
 
 
 @pytest.mark.parametrize('world,n', [(1, 5), (2, 5), (3, 7), (4, 2)])
@@ -292,12 +293,36 @@ def test_cli_computes_in_the_config_dtype():
         torch.float32
 
 
-def test_cli_refuses_what_is_not_ported(setup, tmp_path):
-    root, _ = setup
+def test_cli_scores_a_jax_msgpack_as_its_pth(setup, tmp_path):
+    """The JAX package's ``.msgpack`` of the weights in ``model.pth`` (f64
+    values that float32 holds exactly) scores as the ``.pth`` does, with
+    an empty import report."""
+    root, variables = setup
     config = write_config(root, tmp_path / 'cfg.py')
-    with pytest.raises(NotImplementedError, match='A6'):
-        cli.main([config, str(tmp_path / 'model.msgpack'), '--device',
-                  'cpu'])
+    sd = torch.load(root / 'model.pth', weights_only=False)['state_dict']
+    exact = jax.tree_util.tree_map(
+        lambda v: np.asarray(v, np.float32).astype(np.float64), variables)
+    ckpt = str(tmp_path / 'model.msgpack')
+    jax_save(ckpt, exact, meta={'epoch': 3, 'iter': 30})
+    got = cli.main([config, ckpt, '--device', 'cpu'])
+    want = cli.main([config, str(root / 'model.pth'), '--device', 'cpu'])
+    np.testing.assert_array_equal(got['scores'], want['scores'])
+    model = cli.build_model(Config.fromfile(config), False, 'prob')
+    report = cli.load_checkpoint(model, ckpt)
+    assert (report['missing'], report['unexpected'],
+            report['mismatched']) == ([], [], [])
+    assert all(torch.equal(model.state_dict()[k], v) for k, v in sd.items()
+               if not k.endswith('num_batches_tracked'))
+
+
+def test_cli_refuses_what_is_not_ported(setup, tmp_path):
+    root, variables = setup
+    config = write_config(root, tmp_path / 'cfg.py')
+    calibrated = str(tmp_path / 'quant.msgpack')
+    jax_save(calibrated, dict(variables,
+                              quant_stats={'act_scale': np.ones(3)}))
+    with pytest.raises(NotImplementedError, match='A14'):
+        cli.main([config, calibrated, '--device', 'cpu'])
     with pytest.raises(NotImplementedError, match='A8'):
         cli.main([config, str(root / 'model.pth'), '--launcher', 'env'])
     quant = tmp_path / 'quant.py'

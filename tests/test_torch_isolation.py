@@ -1,6 +1,7 @@
-"""The port stands alone: no JAX, flax or mvfnet_tpu import anywhere in
-mvfnet_tpu_torch/ or chip_smoke.py, importing it loads neither JAX nor
-triton nor a kernel, and its entry points run on CUDA unless told not to."""
+"""The port stands alone: no JAX, flax, msgpack or mvfnet_tpu import
+anywhere in mvfnet_tpu_torch/ or chip_smoke.py (the port carries its own
+msgpack codec), importing it loads neither JAX nor msgpack nor triton nor
+a kernel, and its entry points run on CUDA unless told not to."""
 
 import ast
 import os
@@ -12,7 +13,7 @@ import torch
 
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), '..'))
 PORT = os.path.join(REPO, 'mvfnet_tpu_torch')
-FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'mvfnet_tpu')
+FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'mvfnet_tpu')
 
 
 def _port_files():
@@ -50,9 +51,14 @@ def test_import_loads_no_jax_triton_or_kernel():
         'import mvfnet_tpu_torch.engine, mvfnet_tpu_torch.engine.train_loop\n'
         'import mvfnet_tpu_torch.tools.test_recognizer\n'
         'import mvfnet_tpu_torch.tools.train_recognizer\n'
+        'import mvfnet_tpu_torch.tools.feature_extractor\n'
+        'import mvfnet_tpu_torch.tools.count_flops\n'
+        'import mvfnet_tpu_torch.tools.report_accuracy\n'
+        'import mvfnet_tpu_torch.utils.flops\n'
+        'import mvfnet_tpu_torch.utils.msgpack_codec\n'
         'from mvfnet_tpu_torch.ops import _cuda\n'
         'mods = [m for m in sys.modules if m.split(".")[0] in '
-        '("jax", "flax", "triton") or m == "mvfnet_tpu" '
+        '("jax", "flax", "msgpack", "triton") or m == "mvfnet_tpu" '
         'or m.startswith("mvfnet_tpu.")]\n'
         'assert not mods, mods\n'
         'assert not _cuda._libs\n'

@@ -19,7 +19,8 @@ has no ``BasicBlock``).
   are equal, and the final parameters and BN statistics agree at rtol 1e-7
   / atol 1e-9 (``tests/test_train_trajectory_parity.py``'s tolerances).
 - A run resumed from ``epoch_1.pth`` equals the unbroken run exactly on the
-  CPU, dropout 0.5 included: the masks come from ``(seed + 1, step)``.
+  CPU, dropout 0.5 included: the masks come from ``(seed + 1, step)``; so
+  does one resumed from the same state written as a ``.msgpack``.
 - A saved ``.pth`` has mmcv's layout, imports into the JAX package with an
   empty report and the port's values, and the port's test CLI scores it.
 - ``import_torch_state_dict`` gives ``import_torch_weights``'s report and
@@ -50,6 +51,7 @@ from mvfnet_tpu.models import build_recognizer as jax_build
 from mvfnet_tpu.parallel import make_mesh
 from mvfnet_tpu.parallel.mesh import replicate
 from mvfnet_tpu.utils.checkpoint import import_torch_weights
+from mvfnet_tpu.utils.checkpoint import save_checkpoint as jax_save
 from mvfnet_tpu.utils.checkpoint import \
     load_torch_state_dict as jax_load_torch_state_dict
 from mvfnet_tpu_torch.config import Config
@@ -60,10 +62,10 @@ from mvfnet_tpu_torch.models import build_recognizer
 from mvfnet_tpu_torch.models.builder import build_backbone
 from mvfnet_tpu_torch.tools import test_recognizer as test_cli
 from mvfnet_tpu_torch.tools import train_recognizer as train_cli
-from mvfnet_tpu_torch.utils.checkpoint import (import_torch_state_dict,
-                                               jax_entries,
-                                               load_torch_state_dict,
-                                               state_dict_from_jax)
+from mvfnet_tpu_torch.utils.checkpoint import (
+    import_torch_state_dict, jax_entries, jax_variables_from_state_dict,
+    load_checkpoint, load_torch_state_dict, save_msgpack_checkpoint,
+    state_dict_from_jax)
 
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), '..'))
 T, CROP, NUM_CLASSES = 2, 64, 2
@@ -262,6 +264,51 @@ def test_resume_equals_unbroken_run(trained, tmp_path):
     assert len(momentum) == len(trained['momentum'])
     assert all(torch.equal(a, b) for a, b in zip(momentum,
                                                  trained['momentum']))
+
+
+def test_resume_from_msgpack_equals_unbroken_run(trained, tmp_path):
+    """The state after epoch 1, written as the JAX package's ``.msgpack``
+    (weights, optax momentum traces, the sidecar's epoch and iter),
+    resumes the loop to the unbroken run's epoch 2 exactly; ``load_from``
+    takes the weights alone."""
+    cfg = Config.fromfile(trained['config'])
+    cfg.resume_from = os.path.join(trained['work_dir'], 'epoch_1.pth')
+    model = build_recognizer(dict(cfg.model), test_cfg=cfg.test_cfg)
+    loop = TrainLoop(model, build_dataset(dict(cfg.data['train'])), cfg,
+                     device='cpu')
+    path = str(tmp_path / 'epoch_1.msgpack')
+    save_msgpack_checkpoint(path, loop.model, loop.optimizer,
+                            meta={'epoch': loop.epoch, 'iter': loop.step})
+
+    cfg.resume_from = path
+    cfg.work_dir = str(tmp_path / 'resumed')
+    record = Record()
+    model = build_recognizer(dict(cfg.model), test_cfg=cfg.test_cfg)
+    loop = TrainLoop(model, build_dataset(dict(cfg.data['train'])), cfg,
+                     device='cpu')
+    assert (loop.epoch, loop.step, loop.iter) == (1, 2, 2)
+    loop.register_hook(record)
+    loop.run()
+    assert record.rows == trained['rows'][2:]
+    state = model.state_dict()
+    # the JAX layout keeps no num_batches_tracked (BN uses its momentum)
+    for k, v in trained['state'].items():
+        assert torch.equal(state[k], v) or k.endswith(
+            'num_batches_tracked'), k
+    momentum = [loop.optimizer.state[p]['momentum_buffer']
+                for g in loop.optimizer.param_groups for p in g['params']]
+    assert all(torch.equal(a, b) for a, b in zip(momentum,
+                                                 trained['momentum']))
+
+    cfg.resume_from = None
+    cfg.load_from = path
+    model = build_recognizer(dict(cfg.model), test_cfg=cfg.test_cfg)
+    loop = TrainLoop(model, build_dataset(dict(cfg.data['train'])), cfg,
+                     device='cpu')
+    assert (loop.epoch, loop.step) == (0, 0) and not loop.optimizer.state
+    want = load_checkpoint(path)[0]
+    assert all(torch.equal(v, want[k]) for k, v in model.state_dict().items()
+               if not k.endswith('num_batches_tracked'))
 
 
 def test_dropout_masks_follow_the_step():
@@ -486,11 +533,15 @@ def test_train_cli_refuses_what_is_not_ported(tiny_data, tmp_path):
     for flags in (['--launcher', 'env'], ['--gpus', '2']):
         with pytest.raises(NotImplementedError, match='A8'):
             train_cli.main([config, '--device', 'cpu'] + flags)
-    with pytest.raises(NotImplementedError, match='A6'):
-        train_cli.main([config, '--device', 'cpu', '--resume_from',
-                        str(tmp_path / 'latest.msgpack')])
     cfg = Config.fromfile(config)
     model = build_recognizer(dict(cfg.model))
+    calibrated = str(tmp_path / 'latest.msgpack')
+    variables = jax_variables_from_state_dict(model.state_dict())
+    jax_save(calibrated, dict(variables,
+                              quant_stats={'act_scale': np.ones(3)}))
+    with pytest.raises(NotImplementedError, match='A14'):
+        train_cli.main([config, '--device', 'cpu', '--resume_from',
+                        calibrated])
     for key, value, item in (('local_bn', True, 'A8'),
                              ('model', dict(cfg.model, backbone=dict(
                                  cfg.model['backbone'], with_cp=True)),
