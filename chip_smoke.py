@@ -71,9 +71,23 @@ Phases, each of which exits non-zero on failure:
    multiply-adds worked out from the layers' shapes; ``report_accuracy`` on
    phase 5's two score pickles prints numpy's accuracies, with and without
    a softmax.
+8. the engine's processes, on the same videos, checkpoint and train
+   config (b): (a) under torchrun at world 1 with ``--launcher env`` on
+   NCCL, the test CLI (scores within 1e-5 of phase 5's, 16 + 24 fused
+   launches) and the train CLI (phase 6's losses within 2e-2, its s/iter
+   beside phase 6's); (b) two ranks on one card over gloo (NCCL refuses
+   two ranks on one device), spawned as ``--gpus`` spawns them: the test
+   CLI (scores in dataset order within 1e-5 of phase 5's, 8 + 12 launches
+   a rank), 3 train steps of 2 ranks x 6 clips at 224^2, bf16, against
+   world 1 on the 12 clips (losses within 2e-2, grad norms within 5e-2)
+   and the train CLI for an epoch with an evaluation (one set of
+   checkpoints, importing with an empty report; 8 + 12 launches a rank).
+   Every rank and torchrun run has a deadline; ``dist:`` lines. The
+   ranks run this script again as ``chip_smoke.py --rank REPORT JOBS``.
 
 Prints the ``{"kernels": [...]}`` line (launches of the fused kernel per
-shape in phases 3, 5, 6 and 7), the card's name and power limit,
+shape in phases 3, 5, 6 and 7, and per rank in phase 8's cases as
+``launches_dist``), the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Without CUDA, or without the
 repository beside it, it exits non-zero and prints no result.
 """
@@ -141,6 +155,12 @@ DATA_TOL = 1e-5
 # deterministic; the CPU test checks equality)
 TRAIN_REPEAT, TRAIN_EPOCHS = 6, 2
 RESUME_TOL = 2e-2
+# phase 8: the ranks' device under torchrun (cuda:LOCAL_RANK, NCCL) and
+# the one card two gloo ranks share; DIST_STEPS train steps of DIST_CLIPS
+# clips a rank; every rank and torchrun run get DIST_TIMEOUT seconds
+DIST_DEVICE, DIST_SHARED_DEVICE = 'cuda', 'cuda:0'
+DIST_STEPS, DIST_CLIPS = 3, 6
+DIST_TIMEOUT = 300
 KERNEL = dict(name='fused_bottleneck', route='cuda',
               source='mvfnet_tpu_torch/csrc/fused_bottleneck.cu',
               replaces='mvfnet_tpu/ops/fused_block.py:144')
@@ -1325,8 +1345,324 @@ def phase_entry_points(root, ann, resumed_losses):
     return launches
 
 
+def run_bounded(cmd, timeout, env=None):
+    """``cmd`` in a session of its own, killed with everything it started
+    after ``timeout`` seconds; (return code, stdout, stderr)."""
+    import signal
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, start_new_session=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise SmokeFailure(f'{cmd[:6]}...: no end within {timeout} s')
+    return proc.returncode, out, err
+
+
+def _dist_steps(job):
+    """``job['steps']`` train steps of the flagship (``job['config']``) from
+    seed 0 on this rank's share of each global batch of ``job['clips']``
+    uint8 videos: its losses, grad norms and step times (the first builds
+    cuDNN's plans)."""
+    import numpy as np
+    import torch
+    from mvfnet_tpu_torch.config import Config
+    from mvfnet_tpu_torch.engine.optim import (build_lr_schedule,
+                                               build_optimizer,
+                                               frozen_prefixes_from_backbone)
+    from mvfnet_tpu_torch.engine.train_step import make_train_step
+    from mvfnet_tpu_torch.models import build_recognizer
+    from mvfnet_tpu_torch.parallel import world_rank
+    world, rank = world_rank()
+    cfg = Config.fromfile(job['config'])
+    model = build_recognizer({**cfg.model, 'dtype': cfg.compute_dtype},
+                             train_cfg=cfg.train_cfg, test_cfg=cfg.test_cfg)
+    model.init_weights(torch.Generator().manual_seed(0))
+    schedule = build_lr_schedule(cfg.lr_config, cfg.optimizer['lr'],
+                                 ITERS_PER_EPOCH, cfg.total_epochs)
+    opt = build_optimizer(
+        model.to(job['device']), cfg.optimizer, schedule,
+        grad_clip=cfg.optimizer_config['grad_clip'],
+        frozen_prefixes=frozen_prefixes_from_backbone(cfg.model['backbone']))
+    step = make_train_step(model, opt, schedule,
+                           norm_cfg=dict(cfg.img_norm_cfg, device=True),
+                           device=job['device'], seed=0)
+    n = job['clips']
+    mine = slice(rank * n // world, (rank + 1) * n // world)
+    classes = cfg.model['cls_head']['num_classes']
+    out = dict(loss=[], grad_norm=[], step_s=[])
+    for t in range(job['steps']):
+        rs = np.random.RandomState(2000 + t)
+        imgs = rs.randint(0, 256, (n,) + tuple(job['shape']), dtype=np.uint8)
+        labels = rs.randint(0, classes, n)
+        t0 = time.perf_counter()
+        m = step(imgs[mine], labels[mine])
+        out['loss'].append(m['loss'].item())         # waits for the step
+        out['step_s'].append(time.perf_counter() - t0)
+        out['grad_norm'].append(m['grad_norm'].item())
+    return out
+
+
+def run_rank(jobs, report, backend=None, device=None):
+    """Phase 8's work in one rank: each job of ``jobs`` in turn, a CLI's
+    ``main`` (``{'cli': name, 'args': [...]}``) or ``_dist_steps``
+    (``{'steps': ...}``), with the fused kernel's launches counted from 0
+    for each; the records go to ``report.RANK.json``. With ``backend``
+    this rank joins the group first (``init_distributed('env')`` on
+    ``device``), and the CLIs find it joined; without, each CLI joins and
+    leaves it. Each join's backend and world size are recorded."""
+    import importlib
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+    from mvfnet_tpu_torch.ops import fused_block as fb
+    from mvfnet_tpu_torch.parallel import init_distributed
+    joins, join = [], dist.init_process_group
+
+    def recorded_join(backend=None, *args, **kwargs):
+        joins.append([backend, kwargs.get('world_size')])
+        return join(backend, *args, **kwargs)
+
+    dist.init_process_group = recorded_join
+    if backend:
+        init_distributed('env', backend=backend, device=device,
+                         timeout=timedelta(seconds=DIST_TIMEOUT))
+    rank = int(os.environ['RANK'])
+    records = []
+    for job in jobs:
+        fb.bottleneck_eval_cuda.launches = 0
+        fb.bottleneck_eval_cuda.launches_by_shape.clear()
+        t0 = time.perf_counter()
+        if 'cli' in job:
+            module = importlib.import_module(
+                f'mvfnet_tpu_torch.tools.{job["cli"]}')
+            module.main(job['args'])
+            res = {}
+        else:
+            res = _dist_steps(job)
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        records.append(dict(
+            res, name=job['name'], wall_s=time.perf_counter() - t0,
+            launches=fb.bottleneck_eval_cuda.launches,
+            launches_by_shape=[[list(k), v] for k, v in
+                               fb.bottleneck_eval_cuda.launches_by_shape
+                               .items()]))
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    with open(f'{report}.{rank}.json', 'w') as f:
+        json.dump(dict(rank=rank, joins=joins, records=records), f)
+
+
+def rank_cli(argv):
+    """``chip_smoke.py --rank REPORT JOBS``, one rank under torchrun: the
+    jobs (JSON) of ``run_rank``, the group joined by the CLIs."""
+    sys.path.insert(0, ROOT)
+    run_rank(json.loads(argv[1]), argv[0])
+    return 0
+
+
+def read_ranks(report, world):
+    """The ranks' records of ``run_rank``, by job name: [rank 0's, ...]."""
+    ranks = []
+    for r in range(world):
+        with open(f'{report}.{r}.json') as f:
+            ranks.append(json.load(f))
+    return ranks, {rec['name']: [rk['records'][i] for rk in ranks]
+                   for i, rec in enumerate(ranks[0]['records'])}
+
+
+def _shape_counts(rec):
+    return {tuple(k): v for k, v in rec['launches_by_shape']}
+
+
+def _pickle_err(path, want):
+    import pickle
+
+    import numpy as np
+    with open(path, 'rb') as f:
+        got = np.stack(pickle.load(f))
+    return float(np.abs(got - want).max()) if got.shape == want.shape \
+        else float('inf')
+
+
+def phase_dist(root, ann):
+    """Phase 8: the engine's processes on the card, with phase 5's videos
+    and ``.pth`` and phase 6's train config (b). Returns the fused kernel's
+    launches per rank, by case and (dtype, N, H, W, Cin, Cm)."""
+    import pickle
+
+    import numpy as np
+    import torch
+    from mvfnet_tpu_torch.config import Config
+    from mvfnet_tpu_torch.models import build_recognizer
+    from mvfnet_tpu_torch.parallel import free_port, spawn_local
+    from mvfnet_tpu_torch.utils.checkpoint import (import_torch_state_dict,
+                                                   load_torch_state_dict)
+
+    t_phase = time.perf_counter()
+    ckpt = os.path.join(root, 'mvf_r50_random.pth')
+    test_cfg, train_cfg = (os.path.join(root, 'test_1.py'),
+                           os.path.join(root, 'train_1.py'))
+    with open(os.path.join(root, 'scores_device_norm.pkl'), 'rb') as f:
+        want_scores = np.stack(pickle.load(f))
+    test_args = [test_cfg, ckpt, '--fcn_testing', '--videos_per_gpu', '1']
+    shapes = {name: ('bfloat16',) + shape + (cm,)
+              for name, shape, cm, _ in FUSED_SHAPES}
+    per_video = {shapes[name]: n for name, _, _, n in FUSED_SHAPES if n}
+    per_val = {shapes[name]: n for name, n in VAL_LAUNCHES.items()}
+    launches = {}
+
+    # (a) NCCL at world 1 through torchrun and --launcher env
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    runs = {}
+    for name, job in (
+            ('nccl_test', dict(cli='test_recognizer', args=test_args + [
+                '--launcher', 'env', '--device', DIST_DEVICE, '--out',
+                os.path.join(root, 'scores_nccl.pkl')])),
+            ('nccl_train_cli', dict(cli='train_recognizer', args=[
+                train_cfg, '--work_dir', os.path.join(root, 'train_nccl'),
+                '--validate', '--launcher', 'env', '--device',
+                DIST_DEVICE]))):
+        report = os.path.join(root, name)
+        t0 = time.perf_counter()
+        rc, out, err = run_bounded(
+            [sys.executable, '-m', 'torch.distributed.run', '--nnodes', '1',
+             '--nproc_per_node', '1', '--master_addr', '127.0.0.1',
+             '--master_port', str(free_port()), os.path.abspath(__file__),
+             '--rank', report, json.dumps([dict(job, name=name)])],
+            DIST_TIMEOUT, env)
+        require(rc == 0, f'{name}: torchrun exited {rc}:\n{err[-3000:]}')
+        ranks, recs = read_ranks(report, 1)
+        runs[name] = (time.perf_counter() - t0, ranks[0], recs[name][0])
+        launches[name] = [_shape_counts(recs[name][0])]
+
+    secs, rank0, rec = runs['nccl_test']
+    err = _pickle_err(os.path.join(root, 'scores_nccl.pkl'), want_scores)
+    want = {k: n * DATA_VIDEOS for k, n in per_video.items()}
+    print('dist: ' + json.dumps(dict(
+        case='nccl_test', joins=rank0['joins'],
+        devices=[DIST_DEVICE], wall_s=secs, cli_s=rec['wall_s'],
+        launches=[rec['launches']], vs_phase5_max_abs_err=err,
+        tol=DATA_TOL)))
+    require(rank0['joins'] == [['nccl', 1]],
+            f'nccl_test: joined {rank0["joins"]}')
+    require(err <= DATA_TOL, f'nccl_test: scores vs phase 5: {err}')
+    require(launches['nccl_test'] == [want],
+            f'nccl_test: launches {launches["nccl_test"]}, expected {want}')
+
+    secs, rank0, rec = runs['nccl_train_cli']
+    got, _ = train_log(os.path.join(root, 'train_nccl'))
+    ref, _ = train_log(os.path.join(root, 'train_device_norm'))
+    rel = [abs(a['loss'] - b['loss']) / abs(b['loss'])
+           for a, b in zip(got, ref)]
+    want = {k: n * DATA_VIDEOS * TRAIN_EPOCHS for k, n in per_val.items()}
+    print('dist: ' + json.dumps(dict(
+        case='nccl_train_cli', joins=rank0['joins'],
+        devices=[DIST_DEVICE], wall_s=secs,
+        cli_s=rec['wall_s'],
+        median_s_per_iter=statistics.median(r['s'] for r in got[1:]),
+        phase6_median_s_per_iter=statistics.median(r['s'] for r in ref[1:]),
+        loss=[r['loss'] for r in got], phase6_loss=[r['loss'] for r in ref],
+        loss_rel=rel, tol=RESUME_TOL, launches=[rec['launches']])))
+    require(rank0['joins'] == [['nccl', 1]] and len(got) == len(ref) > 0
+            and max(rel) <= RESUME_TOL,
+            f'nccl_train_cli: joined {rank0["joins"]}, losses {rel} '
+            'relative')
+    require(launches['nccl_train_cli'] == [want],
+            f'nccl_train_cli: launches {launches["nccl_train_cli"]}, '
+            f'expected {want}')
+
+    # (b) gloo at world 2, both ranks on one card: NCCL refuses two ranks
+    # on one device
+    one = os.path.join(root, 'train_1epoch.py')
+    with open(one, 'w') as f:
+        f.write(f'_base_ = {train_cfg!r}\ntotal_epochs = 1\n')
+    work = os.path.join(root, 'train_gloo')
+    step_job = dict(steps=DIST_STEPS, clips=2 * DIST_CLIPS, config=CONFIG,
+                    shape=list(TRAIN_BATCH[1:]), device=DIST_SHARED_DEVICE)
+    jobs = [dict(name='gloo_test', cli='test_recognizer', args=test_args + [
+                '--launcher', 'env', '--device', DIST_SHARED_DEVICE, '--out',
+                os.path.join(root, 'scores_gloo.pkl')]),
+            dict(step_job, name='gloo_steps'),
+            dict(name='gloo_train_cli', cli='train_recognizer', args=[
+                one, '--work_dir', work, '--validate', '--launcher', 'env',
+                '--device', DIST_SHARED_DEVICE])]
+    world1 = _dist_steps(dict(step_job, device=DIST_SHARED_DEVICE))
+    torch.cuda.empty_cache()
+    report = os.path.join(root, 'gloo')
+    t0 = time.perf_counter()
+    spawn_local(run_rank, 2, (jobs, report, 'gloo', DIST_SHARED_DEVICE),
+                timeout=DIST_TIMEOUT)
+    secs = time.perf_counter() - t0
+    ranks, recs = read_ranks(report, 2)
+    require([r['joins'] for r in ranks] == [[['gloo', 2]]] * 2,
+            f'gloo: joined {[r["joins"] for r in ranks]}')
+    for name in ('gloo_test', 'gloo_train_cli'):
+        launches[name] = [_shape_counts(r) for r in recs[name]]
+
+    err = _pickle_err(os.path.join(root, 'scores_gloo.pkl'), want_scores)
+    want = {k: n * DATA_VIDEOS // 2 for k, n in per_video.items()}
+    print('dist: ' + json.dumps(dict(
+        case='gloo_test', backend='gloo', world=2,
+        devices=[DIST_SHARED_DEVICE] * 2, wall_s=secs,
+        cli_s=[r['wall_s'] for r in recs['gloo_test']],
+        launches=[r['launches'] for r in recs['gloo_test']],
+        vs_phase5_max_abs_err=err, tol=DATA_TOL)))
+    require(err <= DATA_TOL, f'gloo_test: scores vs phase 5: {err}')
+    require(launches['gloo_test'] == [want, want],
+            f'gloo_test: launches {launches["gloo_test"]}, expected {want} '
+            'a rank')
+
+    got = recs['gloo_steps']
+    rel = {k: [abs(a - b) / abs(b) for r in got
+               for a, b in zip(r[k], world1[k])]
+           for k in ('loss', 'grad_norm')}
+    print('dist: ' + json.dumps(dict(
+        case='gloo_steps', backend='gloo', world=2,
+        devices=[DIST_SHARED_DEVICE] * 2, clips_per_rank=DIST_CLIPS,
+        shape=list(TRAIN_BATCH[1:]), job_s=[r['wall_s'] for r in got],
+        step_s=[r['step_s'] for r in got], world1_step_s=world1['step_s'],
+        loss=got[0]['loss'], world1_loss=world1['loss'],
+        grad_norm=got[0]['grad_norm'], world1_grad_norm=world1['grad_norm'],
+        max_loss_rel=max(rel['loss']),
+        max_grad_norm_rel=max(rel['grad_norm']), tol=[2e-2, 5e-2])))
+    require(max(rel['loss']) <= 2e-2 and max(rel['grad_norm']) <= 5e-2,
+            f'gloo_steps against world 1: relative {rel}')
+
+    want = {k: n * DATA_VIDEOS // 2 for k, n in per_val.items()}
+    written = sorted(os.listdir(work))
+    model = build_recognizer(dict(Config.fromfile(one).model))
+    imported = import_torch_state_dict(model, load_torch_state_dict(
+        os.path.join(work, 'latest.pth')))
+    iters, _ = train_log(work)
+    print('dist: ' + json.dumps(dict(
+        case='gloo_train_cli', backend='gloo', world=2,
+        devices=[DIST_SHARED_DEVICE] * 2,
+        cli_s=[r['wall_s'] for r in recs['gloo_train_cli']],
+        s_per_iter=[r['s'] for r in iters], loss=[r['loss'] for r in iters],
+        written=written,
+        launches=[r['launches'] for r in recs['gloo_train_cli']],
+        phase_s=time.perf_counter() - t_phase, card=card_line())))
+    require(written == ['epoch_1.pth', 'latest.pth', 'train.log'],
+            f'gloo_train_cli wrote {written}')
+    require(len(iters) == DATA_VIDEOS * TRAIN_REPEAT // (2 * 12)
+            and all(np.isfinite([r['loss'] for r in iters])),
+            f'gloo_train_cli: log {iters}')
+    require(imported['missing'] == imported['unexpected']
+            == imported['mismatched'] == [],
+            f'gloo_train_cli: latest.pth import report {imported}')
+    require(launches['gloo_train_cli'] == [want, want],
+            f'gloo_train_cli: launches {launches["gloo_train_cli"]}, '
+            f'expected {want} a rank')
+    return launches
+
+
 def phase_rawframes():
-    """Phases 5, 6 and 7 on one rawframe dataset in a temporary directory;
+    """Phases 5-8 on one rawframe dataset in a temporary directory;
     returns their fused-kernel launches by case and shape."""
     import tempfile
 
@@ -1342,7 +1678,9 @@ def phase_rawframes():
         data_launches = phase_data(root, ann)
         train_launches, resumed_losses = phase_train_cli(root)
         feature_launches = phase_entry_points(root, ann, resumed_losses)
-        return data_launches, train_launches, feature_launches
+        dist_launches = phase_dist(root, ann)
+        return (data_launches, train_launches, feature_launches,
+                dist_launches)
 
 
 def main():
@@ -1371,7 +1709,8 @@ def main():
         records = phase_kernel()
         launches = phase_slice()
         phase_train()
-        data_launches, train_launches, feature_launches = phase_rawframes()
+        (data_launches, train_launches, feature_launches,
+         dist_launches) = phase_rawframes()
         for r in records:
             key = (r['dtype'],) + tuple(r['shape'])
             r['launches'] = launches.get(key, 0)
@@ -1380,6 +1719,8 @@ def main():
             r['launches_train_cli'] = {case: n.get(key, 0)
                                        for case, n in train_launches.items()}
             r['launches_features'] = feature_launches.get(key, 0)
+            r['launches_dist'] = {case: [n.get(key, 0) for n in ranks]
+                                  for case, ranks in dist_launches.items()}
     except SmokeFailure as e:
         print(f'chip_smoke: FAILED: {e}', file=sys.stderr)
         return 1
@@ -1392,4 +1733,5 @@ def main():
 
 
 if __name__ == '__main__':
-    sys.exit(main())
+    sys.exit(rank_cli(sys.argv[2:]) if sys.argv[1:2] == ['--rank']
+             else main())

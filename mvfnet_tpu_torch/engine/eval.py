@@ -1,13 +1,14 @@
 """Dense-test inference over a dataset (counterpart of
 ``mvfnet_tpu/engine/eval.py``).
 
-The process infers its sampler shard through one eval step
+Each process infers its rank-strided sampler shard through one eval step
 (``train_step.make_eval_step``): the threaded loader decodes and crops on
 the host, ``prefetch.prefetch_to_device`` uploads the next batch while the
 current one computes, and the scores stay on the device until the end.
-Results come back in dataset order, truncated to the dataset's length, as
-the reference's ``collect_results_gpu`` does (``codes/core/test.py:147-185``).
-Gathering across processes is not ported yet (``ROADMAP.md``, A8).
+Then every rank gathers every shard (``parallel.all_gather_rows``, the
+counterpart of JAX's ``process_allgather``) and puts them back in dataset
+order, truncated to the dataset's length, as the reference's
+``collect_results_gpu`` does (``codes/core/test.py:147-185``).
 """
 
 from __future__ import annotations
@@ -18,15 +19,9 @@ import numpy as np
 import torch
 
 from ..data import DataLoader, ShardedSampler
+from ..parallel import all_gather_rows, world_rank
 from .prefetch import prefetch_to_device
 from .train_step import make_eval_step, resolve_device
-
-
-def _world_rank():
-    import torch.distributed as dist
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size(), dist.get_rank()
-    return 1, 0
 
 
 def evaluate_dataset(model: torch.nn.Module, dataset,
@@ -38,7 +33,10 @@ def evaluate_dataset(model: torch.nn.Module, dataset,
     """Run inference over the whole dataset; returns (N, K) scores in
     dataset order, on the host, or with ``extract_feat`` the features of
     ``model.forward_extract_feat``, (N, rows * C): each video's rows (its
-    clip volumes, or its frames), C features each, in one row.
+    clip volumes, or its frames), C features each, in one row. In a
+    process group every rank infers its shard and returns the whole array.
+    ``model`` is the module itself, not a ``DistributedDataParallel``
+    wrapper.
 
     ``norm_cfg`` is the pipeline's ``Normalize(device=True)`` node
     (``data.device_norm_cfg``), None when the host normalizes. ``device``
@@ -48,10 +46,7 @@ def evaluate_dataset(model: torch.nn.Module, dataset,
         raise NotImplementedError('quantized backbones are not ported yet '
                                   '(ROADMAP.md, A14)')
     device = resolve_device(device)
-    world, rank = _world_rank()
-    if world > 1:
-        raise NotImplementedError('multi-process evaluation is not ported '
-                                  'yet (ROADMAP.md, A8)')
+    world, rank = world_rank()
     sampler = ShardedSampler(len(dataset), world, rank, shuffle=False,
                              pad=True)
     loader = DataLoader(dataset, videos_per_gpu, sampler,
@@ -90,13 +85,15 @@ def evaluate_dataset(model: torch.nn.Module, dataset,
     scores = torch.cat(out)
     if scores.dtype == torch.bfloat16:        # numpy has no bfloat16
         scores = scores.float()
-    local = scores.cpu().numpy()
     # rows must be a multiple of the shard length, or a strided reorder
     # across ranks would misassign scores
-    if local.shape[0] % len(sampler):
-        raise RuntimeError(f'shard size mismatch: got {local.shape[0]} rows '
-                           f'for {len(sampler)} sampler indices')
-    return local[:len(dataset)]
+    if scores.shape[0] % len(sampler):
+        raise RuntimeError(f'shard size mismatch: got {scores.shape[0]} '
+                           f'rows for {len(sampler)} sampler indices')
+    if world > 1:
+        return reorder_rank_strided(all_gather_rows(scores).cpu().numpy(),
+                                    world, len(dataset))
+    return scores.cpu().numpy()[:len(dataset)]
 
 
 def _freeze(obj):

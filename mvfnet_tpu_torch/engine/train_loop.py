@@ -10,12 +10,19 @@ frames go up through one ``prefetch.PinnedStager`` (reused across epochs)
 while the step before computes, and the LR schedule and the clip live in
 the step.
 
+In a process group (``parallel.init_distributed``) each rank loads its
+shard of every epoch, ``videos_per_gpu`` videos a step, so the global
+batch is world × ``videos_per_gpu`` as in the JAX package; the step syncs
+BatchNorm across ranks unless ``cfg.local_bn``. Every rank resumes from the
+same file and evaluates its shard; rank 0 alone writes checkpoints and
+TensorBoard scalars and logs (the logger of other ranks is silenced), and
+every rank waits at a barrier after each checkpoint.
+
 ``resume_from`` and ``load_from`` take the port's ``.pth`` checkpoints and
 the JAX package's ``.msgpack`` ones (weights, optax state and the
 ``.meta.json`` sidecar).
 
-Refused with ``NotImplementedError``, each naming its ``ROADMAP.md`` item:
-per-shard BatchNorm (``local_bn``) and more than one process (A8) and
+Refused with ``NotImplementedError``, naming its ``ROADMAP.md`` item:
 activation checkpointing (``with_cp``, A11).
 """
 
@@ -30,6 +37,7 @@ import numpy as np
 import torch
 
 from ..data import build_dataloader, build_dataset, device_norm_cfg
+from ..parallel import barrier, is_main_process, world_rank
 from ..utils.checkpoint import (import_torch_state_dict, load_checkpoint,
                                 load_optax_state, load_torch_state_dict,
                                 load_weights, save_checkpoint)
@@ -85,6 +93,8 @@ class TensorboardLoggerHook(Hook):
         self._writer = None
 
     def before_run(self, loop):
+        if not is_main_process():
+            return
         try:
             from torch.utils.tensorboard import SummaryWriter
         except ImportError:
@@ -108,7 +118,7 @@ class TensorboardLoggerHook(Hook):
 
 class CheckpointHook(Hook):
     """``epoch_{n}.pth`` and ``latest.pth`` every ``interval`` epochs and
-    at the last one."""
+    at the last one, written by rank 0; every rank waits for them."""
 
     def __init__(self, interval: int = 10, out_dir: Optional[str] = None):
         self.interval = interval
@@ -121,15 +131,18 @@ class CheckpointHook(Hook):
         out = self.out_dir or loop.work_dir
         meta = {'epoch': loop.epoch + 1, 'iter': loop.step}
         path = os.path.join(out, f'epoch_{loop.epoch + 1}.pth')
-        for p in (path, os.path.join(out, 'latest.pth')):
-            save_checkpoint(p, loop.model, loop.optimizer, meta)
-        loop.logger.info('saved checkpoint %s', path)
+        if is_main_process():
+            for p in (path, os.path.join(out, 'latest.pth')):
+                save_checkpoint(p, loop.model, loop.optimizer, meta)
+            loop.logger.info('saved checkpoint %s', path)
+        barrier()
 
 
 class EvalHook(Hook):
     """Mid-train top-k evaluation of ``dataset_cfg`` every ``interval``
-    epochs. Each pass appends ``{'epoch', 'top1', 'top5', 'scores'}`` to
-    ``loop.eval_history`` (the JAX loop's entry, and the scores)."""
+    epochs, each rank on its shard. Each pass appends ``{'epoch', 'top1',
+    'top5', 'scores'}`` to ``loop.eval_history`` on every rank (the JAX
+    loop's entry, and the scores)."""
 
     def __init__(self, dataset_cfg: Dict, interval: int = 10,
                  k=(1, 5), videos_per_gpu: int = 1,
@@ -165,22 +178,14 @@ class EvalHook(Hook):
 
 
 def _refuse_unported(cfg) -> None:
-    if cfg.get('local_bn'):
-        raise NotImplementedError('per-shard BatchNorm (local_bn) needs the '
-                                  'multi-process engine, not ported yet '
-                                  '(ROADMAP.md, A8)')
     if ((cfg.get('model') or {}).get('backbone') or {}).get('with_cp'):
         raise NotImplementedError('activation checkpointing (with_cp) is not '
                                   'ported yet (ROADMAP.md, A11)')
-    import torch.distributed as dist
-    if dist.is_available() and dist.is_initialized() \
-            and dist.get_world_size() > 1:
-        raise NotImplementedError('training over more than one process is '
-                                  'not ported yet (ROADMAP.md, A8)')
 
 
 class TrainLoop:
-    """The JAX ``TrainLoop`` on one card (``device``, CUDA by default).
+    """The JAX ``TrainLoop`` on this rank's card (``device``, CUDA by
+    default).
 
     Weights come from ``model.init_weights`` with a CPU generator seeded
     ``seed``, then the backbone's ``pretrained`` ``.pth`` through the
@@ -204,7 +209,7 @@ class TrainLoop:
 
         self.loader = build_dataloader(
             dataset, cfg.data['videos_per_gpu'], cfg.data['workers_per_gpu'],
-            shuffle=True, seed=seed)
+            dist=world_rank()[0] > 1, shuffle=True, seed=seed)
         self.iters_per_epoch = len(self.loader)
         self.total_epochs = cfg['total_epochs']
         self.lr_schedule = build_lr_schedule(
@@ -238,7 +243,8 @@ class TrainLoop:
                              '(uint8 host->device transfer)')
         self.train_step = make_train_step(model, self.optimizer,
                                           self.lr_schedule, norm_cfg=norm_cfg,
-                                          device=self.device, seed=seed)
+                                          device=self.device, seed=seed,
+                                          local_bn=bool(cfg.get('local_bn')))
         self.stager = (PinnedStager(self.device)
                        if self.device.type == 'cuda' else None)
         self.hooks: List[Hook] = []

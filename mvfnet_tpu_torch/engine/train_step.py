@@ -1,9 +1,12 @@
 """Train and dense-test steps (counterpart of
-``mvfnet_tpu/engine/train_step.py`` without a mesh or remat).
+``mvfnet_tpu/engine/train_step.py`` without remat).
 
 A train step is forward, cross-entropy, backward, the clip by global norm,
 the LR of the step and one SGD update, as the JAX package's jitted step
-computes them; here they are eager PyTorch calls on the device.
+computes them; here they are eager PyTorch calls on the device. Over more
+than one process (``parallel.init_distributed``) each rank takes its share
+of the global batch through ``DistributedDataParallel``, with BatchNorm
+over the global batch (the JAX default) or per rank (``local_bn``).
 """
 
 from __future__ import annotations
@@ -67,13 +70,37 @@ class TrainState:
     step: int = 0
 
 
-def dropout_seed(seed: int, step: int) -> int:
+def dropout_seed(seed: int, step: int, rank: Optional[int] = None) -> int:
     """The dropout generator's seed for ``step`` of a run seeded ``seed``:
     the counterpart of ``jax.random.fold_in(PRNGKey(seed + 1), step)`` in
-    the JAX package's loop and step, a function of the pair alone."""
-    state = np.random.SeedSequence([seed + 1, step]).generate_state(
-        1, np.uint64)
+    the JAX package's loop and step, a function of the pair alone; with
+    ``rank``, folded in too (``fold_in(..., axis_index)`` of the JAX
+    step's per-shard BatchNorm)."""
+    entropy = [seed + 1, step] + ([] if rank is None else [rank])
+    state = np.random.SeedSequence(entropy).generate_state(1, np.uint64)
     return int(state[0]) >> 1
+
+
+def _ddp(model: torch.nn.Module, device: torch.device):
+    """``model`` in ``DistributedDataParallel`` without buffer broadcasts:
+    global BatchNorm keeps the buffers equal by itself and per-rank
+    BatchNorm averages them after the step. Newer torch spells the switch
+    ``forward_sync_buffers`` and warns at ``broadcast_buffers``."""
+    import inspect
+    from torch.nn.parallel import DistributedDataParallel
+    params = inspect.signature(DistributedDataParallel.__init__).parameters
+    off = ('forward_sync_buffers' if 'forward_sync_buffers' in params
+           else 'broadcast_buffers')
+    ids = dict(device_ids=[device.index if device.index is not None
+                           else torch.cuda.current_device()]) \
+        if device.type == 'cuda' else {}
+    return DistributedDataParallel(model, **ids, **{off: False})
+
+
+def _bn_buffers(model: torch.nn.Module):
+    from ..models.common import BatchNorm
+    return [b for m in model.modules() if isinstance(m, BatchNorm)
+            for b in (m.running_mean, m.running_var)]
 
 
 def make_train_step(model: torch.nn.Module,
@@ -81,7 +108,8 @@ def make_train_step(model: torch.nn.Module,
                     lr_schedule: Callable[[int], float],
                     norm_cfg: Optional[Dict[str, Any]] = None,
                     device: Union[None, str, torch.device] = None,
-                    seed: Optional[int] = None) -> Callable:
+                    seed: Optional[int] = None,
+                    local_bn: bool = False) -> Callable:
     """Build ``train_step(imgs, labels, generator=None) -> metrics``.
 
     ``optimizer`` is ``engine.optim.build_optimizer``'s. ``imgs`` is a
@@ -99,23 +127,47 @@ def make_train_step(model: torch.nn.Module,
     key holds 'loss'), ``grad_norm`` (the global L2 norm of every gradient,
     frozen parameters' too, before the clip), as 0-d tensors on the device,
     and ``lr``, a float.
+
+    In a process group of world W > 1, ``imgs`` is this rank's B videos of
+    the global W·B batch. The model is wrapped in
+    ``DistributedDataParallel``, so the gradients, and with them the clip
+    and ``grad_norm``, are the global batch's; the losses are averaged over
+    the ranks. BatchNorm normalizes with the global batch's statistics
+    (``models.common.set_sync_group``), and every rank draws the dropout
+    mask of the global batch from the same seed and keeps its own rows, so
+    the step computes what one process computes on the concatenated batch.
+    With ``local_bn`` each rank normalizes with its own statistics, the
+    running statistics are averaged over the ranks after the step (the JAX
+    step stores the mean of the per-shard averages), and each rank draws
+    its own mask (the seed folds in the rank). At world 1 neither applies.
     """
+    from ..models.common import set_sync_group
+    from ..parallel import all_reduce_mean, world_rank
     device = resolve_device(device)
     model.to(device)
     state = TrainState()
     step_generator = (torch.Generator(device=device) if seed is not None
                       else None)
+    world, rank = world_rank()
+    forward = model
+    if world > 1:
+        import torch.distributed as dist
+        set_sync_group(model, None if local_bn else dist.group.WORLD)
+        forward = _ddp(model, device)
+    # the head keeps rows rank*B.. of the global batch's dropout mask
+    model.cls_head.dropout_shard = (1, 0) if local_bn else (world, rank)
+    mask_rank = rank if world > 1 and local_bn else None
 
     def train_step(imgs, labels, generator=None) -> Dict[str, Any]:
         if generator is None and step_generator is not None:
             generator = step_generator.manual_seed(
-                dropout_seed(seed, state.step))
+                dropout_seed(seed, state.step, mask_rank))
         imgs = maybe_device_normalize(_to_device(imgs, device), norm_cfg,
                                       model.compute_dtype)
         labels = _to_device(labels, device)
-        model.train()
+        forward.train()
         model.zero_grad(set_to_none=True)
-        losses = model(imgs, labels, return_loss=True, generator=generator)
+        losses = forward(imgs, labels, return_loss=True, generator=generator)
         total = sum(v for k, v in losses.items() if 'loss' in k)
         total.backward()
         grad_norm = optimizer.clip_grads()
@@ -124,7 +176,21 @@ def make_train_step(model: torch.nn.Module,
         optimizer.step()
         state.step += 1
         metrics = {k: v.detach() for k, v in losses.items()}
-        metrics.update(loss=total.detach(), grad_norm=grad_norm, lr=lr)
+        metrics['loss'] = total.detach()
+        if world > 1:
+            # one all_reduce for the losses, one for the BN statistics
+            keys = list(metrics)
+            mean = all_reduce_mean(torch.stack([metrics[k] for k in keys]))
+            metrics = dict(zip(keys, mean.unbind()))
+            if local_bn:
+                with torch.no_grad():
+                    bufs = _bn_buffers(model)
+                    flat = all_reduce_mean(torch.cat(
+                        [b.reshape(-1) for b in bufs]))
+                    for b, v in zip(bufs, flat.split(
+                            [b.numel() for b in bufs])):
+                        b.copy_(v.view_as(b))
+        metrics.update(grad_norm=grad_norm, lr=lr)
         return metrics
 
     train_step.state = state

@@ -63,16 +63,25 @@ class TSNClsHead(nn.Module):
         return F.linear(feat, self.new_fc.weight.to(feat.dtype),
                         self.new_fc.bias.to(feat.dtype))
 
+    # (world, rank): this process holds rows rank*M..(rank+1)*M of a
+    # world*M-row batch and keeps those rows of its mask
+    # (``engine.train_step.make_train_step`` sets it)
+    dropout_shard = (1, 0)
+
     def dropout(self, feat: torch.Tensor,
                 generator: Optional[torch.Generator]) -> torch.Tensor:
         """Zero each value with probability p, scale the rest by 1/(1-p);
         the mask comes from ``generator`` (the device's default generator
-        when None). The identity in eval or with p = 0."""
+        when None), drawn for the whole batch of ``dropout_shard``. The
+        identity in eval or with p = 0."""
         p = self.dropout_ratio
         if not (self.training and p):
             return feat
-        keep = torch.rand(feat.shape, generator=generator,
-                          device=feat.device) >= p
+        world, rank = self.dropout_shard
+        m = feat.shape[0]
+        keep = torch.rand((world * m,) + tuple(feat.shape[1:]),
+                          generator=generator,
+                          device=feat.device)[rank * m:(rank + 1) * m] >= p
         return torch.where(keep, feat / (1 - p), torch.zeros_like(feat))
 
     def forward(self, x: torch.Tensor, num_seg: int,

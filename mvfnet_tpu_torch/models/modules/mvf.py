@@ -18,10 +18,9 @@ from __future__ import annotations
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from ...ops.mvf import hard_swish, mvf_conv_sum
-from ..common import BN_EPS, BN_MOMENTUM, make_norm, to_nchw, to_nhwc
+from ..common import BN_EPS, make_norm, to_nchw, to_nhwc
 
 _TAP_SHAPES = {'shift_conv': (3, 1, 1), 'h_conv': (1, 3, 1),
                'w_conv': (1, 1, 3)}
@@ -104,12 +103,7 @@ class MVF(nn.Module):
             if bn.training:
                 # statistics in at least f32; f64 stays f64
                 stat = torch.promote_types(y.dtype, torch.float32)
-                yf = F.batch_norm(
-                    y.reshape(-1, cs).to(stat), bn.running_mean,
-                    bn.running_var, bn.weight, bn.bias, True, BN_MOMENTUM,
-                    BN_EPS)
-                if bn.num_batches_tracked is not None:
-                    bn.num_batches_tracked.add_(1)
+                yf = bn.normalize(y.reshape(-1, cs).to(stat))
                 y = hard_swish(yf).to(x.dtype).reshape(y.shape)
             else:
                 scale = bn.weight / torch.sqrt(bn.running_var + BN_EPS)

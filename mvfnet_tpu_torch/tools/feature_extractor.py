@@ -3,7 +3,7 @@
 
     python -m mvfnet_tpu_torch.tools.feature_extractor CONFIG CHECKPOINT \\
         [--out features.json] [--fcn_testing] [--videos_per_gpu N] \\
-        [--device cuda|cpu]
+        [--launcher none|env|slurm] [--device cuda|cpu]
 
 Builds the config's recognizer with its head in ``extract_feat`` mode and
 ``average_clips=None`` (``fcn_testing`` on the model and the head with
@@ -13,9 +13,10 @@ CLI does, runs the config's test split through
 ``{basename(filename): [floats]}`` as JSON: each video's rows (its clip
 volumes with ``--fcn_testing``, else its frames) of pooled backbone
 features, flattened. The features are computed in the config's
-``compute_dtype`` (bf16 for the flagship) and written as floats. It runs on
-CUDA unless ``--device cpu`` is given, and raises without CUDA;
-``--launcher env|slurm`` raises (``ROADMAP.md`` A8).
+``compute_dtype`` (bf16 for the flagship) and written as floats. Under
+``--launcher env`` (torchrun) or ``slurm`` (srun) every rank extracts its
+shard and rank 0 alone writes the JSON. It runs on CUDA unless
+``--device cpu`` is given, and raises without CUDA.
 """
 
 from __future__ import annotations
@@ -42,20 +43,22 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, List[float]]:
-    """Extract and write the features; returns what was written."""
+    """Extract and write the features; returns what was written (on every
+    rank)."""
     args = parse_args(argv)
-    if args.launcher != 'none':
-        raise NotImplementedError(
-            f'--launcher {args.launcher}: multi-process feature extraction '
-            'is not ported yet (ROADMAP.md, A8)')
+    from ..parallel import process_group
+    with process_group(args.launcher, args.device) as device:
+        return _extract(args, device)
+
+
+def _extract(args, device) -> Dict[str, List[float]]:
     from ..config import Config
     from ..data import build_dataset, device_norm_cfg
     from ..engine.eval import evaluate_dataset
-    from ..engine.train_step import resolve_device
+    from ..parallel import is_main_process
     from ..utils.logging import get_root_logger
     from .test_recognizer import build_model, load_checkpoint
 
-    device = resolve_device(args.device)
     cfg = Config.fromfile(args.config)
     logger = get_root_logger(cfg.get('log_level', 'INFO'))
     model = build_model(cfg, args.fcn_testing, None, extract_feat=True)
@@ -70,9 +73,10 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, List[float]]:
         device=device)
     out = {info['filename'].split('/')[-1]: [float(x) for x in feat]
            for info, feat in zip(dataset.video_infos, feats)}
-    with open(args.out, 'w') as f:
-        json.dump(out, f)
-    logger.info('wrote %d features to %s', len(out), args.out)
+    if is_main_process():
+        with open(args.out, 'w') as f:
+            json.dump(out, f)
+        logger.info('wrote %d features to %s', len(out), args.out)
     return out
 
 

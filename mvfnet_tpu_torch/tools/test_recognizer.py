@@ -2,7 +2,7 @@
 
     python -m mvfnet_tpu_torch.tools.test_recognizer CONFIG CHECKPOINT \\
         [--out scores.pkl] [--fcn_testing] [--average-clips prob|score] \\
-        [--videos_per_gpu N] [--device cuda|cpu]
+        [--videos_per_gpu N] [--launcher none|env|slurm] [--device cuda|cpu]
 
 Builds the model and the config's test dataset, loads a ``.pth`` checkpoint
 through the non-strict importer (``utils.checkpoint.import_torch_state_dict``,
@@ -14,6 +14,8 @@ accuracy in the JAX CLI's format. The compute dtype is the config's
 ``compute_dtype`` (bf16 for the flagship, whose fused kernel's tiled path
 is bf16; the JAX CLI computes in float32 whatever the config says); the
 config's ``Normalize`` decides whether the host or the device normalizes.
+Under ``--launcher env`` (torchrun) or ``slurm`` (srun) every rank scores
+its shard of the videos and rank 0 alone writes the pickle and prints.
 It runs on CUDA unless ``--device cpu`` is given, and raises without CUDA.
 """
 
@@ -83,20 +85,22 @@ def load_checkpoint(model, checkpoint: str, logger=None) -> Dict[str, Any]:
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
-    """Run the dense test; returns the scores and the three accuracies."""
+    """Run the dense test; returns the scores and the three accuracies
+    (on every rank)."""
     args = parse_args(argv)
-    if args.launcher != 'none':
-        raise NotImplementedError(
-            f'--launcher {args.launcher}: multi-process testing is not '
-            'ported yet (ROADMAP.md, A8)')
+    from ..parallel import process_group
+    with process_group(args.launcher, args.device) as device:
+        return _test(args, device)
+
+
+def _test(args, device) -> Dict[str, Any]:
     from ..config import Config
     from ..data import build_dataset, device_norm_cfg
     from ..engine.eval import evaluate_dataset
-    from ..engine.train_step import resolve_device
+    from ..parallel import is_main_process
     from ..utils.logging import get_root_logger
     from ..utils.metrics import mean_class_accuracy, top_k_accuracy
 
-    device = resolve_device(args.device)
     cfg = Config.fromfile(args.config)
     logger = get_root_logger(cfg.get('log_level', 'INFO'))
     model = build_model(cfg, args.fcn_testing, args.average_clips,
@@ -111,16 +115,17 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
         norm_cfg=device_norm_cfg(cfg.data['test'].get('pipeline')),
         device=device)
 
-    if args.out:
-        with open(args.out, 'wb') as f:
-            pickle.dump(list(scores), f)
-        logger.info('scores written to %s', args.out)
     labels = [info['label'] for info in dataset.video_infos]
     top1, top5 = top_k_accuracy(scores, labels, k=(1, 5))
     mca = mean_class_accuracy(scores, labels)
-    print(f'Top-1 Accuracy = {top1 * 100:.02f}')
-    print(f'Top-5 Accuracy = {top5 * 100:.02f}')
-    print(f'Mean Class Accuracy = {mca * 100:.02f}')
+    if is_main_process():
+        if args.out:
+            with open(args.out, 'wb') as f:
+                pickle.dump(list(scores), f)
+            logger.info('scores written to %s', args.out)
+        print(f'Top-1 Accuracy = {top1 * 100:.02f}')
+        print(f'Top-5 Accuracy = {top5 * 100:.02f}')
+        print(f'Mean Class Accuracy = {mca * 100:.02f}')
     return dict(scores=scores, top1=top1, top5=top5, mean_class=mca)
 
 

@@ -3,18 +3,22 @@
     python -m mvfnet_tpu_torch.tools.train_recognizer CONFIG \\
         [--work_dir DIR] [--resume_from CKPT] [--validate] \\
         [--seed N] [--bf16] [--autoscale-lr] [--profile N] \\
-        [--device cuda|cpu]
+        [--launcher none|env|slurm] [--gpus N] [--device cuda|cpu]
 
 Builds the config's recognizer in its ``compute_dtype`` (bf16 with
 ``--bf16``; parameters stay float32) and its train dataset, and runs
-``engine.train_loop.train_network`` on one card: ``epoch_N.pth`` and
-``latest.pth`` checkpoints and ``train.log`` go to the work directory
-(``--resume_from`` also takes the JAX package's ``.msgpack`` ones), and
-``--validate`` evaluates ``data.val`` every ``eval_interval`` epochs.
-``--profile N`` traces iterations 1..N with ``torch.profiler`` into
-``WORK_DIR/profile``. It runs on CUDA unless ``--device cpu`` is given, and
-raises without CUDA; ``--launcher env|slurm`` and ``--gpus`` above 1 raise
-(multi-process training is ``ROADMAP.md`` A8).
+``engine.train_loop.train_network``: ``epoch_N.pth`` and ``latest.pth``
+checkpoints and ``train.log`` go to the work directory (``--resume_from``
+also takes the JAX package's ``.msgpack`` ones), and ``--validate``
+evaluates ``data.val`` every ``eval_interval`` epochs. ``--profile N``
+traces iterations 1..N with ``torch.profiler`` into ``WORK_DIR/profile``.
+
+One process trains on one card unless ``--launcher env`` (torchrun) or
+``--launcher slurm`` (srun) starts one per card, or ``--gpus N`` spawns N
+local ranks on ``cuda:0..N-1``; each rank takes ``videos_per_gpu`` videos
+a step and rank 0 writes the files. ``--autoscale-lr`` scales the LR by
+world / 8. It runs on CUDA (NCCL between ranks) unless ``--device cpu``
+is given (gloo), and raises without CUDA.
 """
 
 from __future__ import annotations
@@ -22,7 +26,11 @@ from __future__ import annotations
 import argparse
 import logging
 import os
+import sys
 from typing import Optional, Sequence
+
+# how long the spawned ranks of --gpus may train, in seconds
+_SPAWN_TIMEOUT = 7 * 24 * 3600.0
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -33,13 +41,15 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     parser.add_argument('--validate', action='store_true',
                         help='run top-k evaluation during training')
     parser.add_argument('--gpus', type=int, default=None,
-                        help='number of cards (one is ported)')
+                        help='local ranks to spawn, one a card (without '
+                             '--launcher)')
     parser.add_argument('--seed', type=int, default=None, help='random seed')
     parser.add_argument('--launcher', default='none',
                         choices=['none', 'env', 'slurm'],
-                        help='multi-process launcher (not ported yet)')
+                        help='multi-process launcher: env (torchrun) or '
+                             'slurm (srun)')
     parser.add_argument('--autoscale-lr', action='store_true',
-                        help='scale lr by cards / 8')
+                        help='scale lr by ranks / 8')
     parser.add_argument('--bf16', action='store_true', default=None,
                         help='force bfloat16 compute (default: config)')
     parser.add_argument('--profile', type=int, default=0, metavar='N',
@@ -84,42 +94,59 @@ def _profile_hook(n: int, out_dir: str, logger):
     return ProfileHook()
 
 
+def _spawned_rank(argv: Sequence[str]) -> None:
+    main(list(argv) + ['--launcher', 'env'])
+
+
 def main(argv: Optional[Sequence[str]] = None):
-    """Train; returns the ``TrainLoop`` after its run."""
+    """Train; returns the ``TrainLoop`` after its run (None in the process
+    that spawned ``--gpus`` ranks)."""
     args = parse_args(argv)
-    if args.launcher != 'none':
-        raise NotImplementedError(
-            f'--launcher {args.launcher}: multi-process training is not '
-            'ported yet (ROADMAP.md, A8)')
-    if args.gpus is not None and args.gpus > 1:
-        raise NotImplementedError(
-            f'--gpus {args.gpus}: the port trains on one card; more is not '
-            'ported yet (ROADMAP.md, A8)')
+    if args.launcher == 'none' and args.gpus is not None and args.gpus > 1:
+        import torch
+        from ..parallel import spawn_local
+        if torch.device(args.device).type == 'cuda' \
+                and torch.cuda.device_count() < args.gpus:
+            raise RuntimeError(f'--gpus {args.gpus}: '
+                               f'{torch.cuda.device_count()} CUDA devices '
+                               'are visible')
+        spawn_local(_spawned_rank, args.gpus, (list(argv or sys.argv[1:]),),
+                    timeout=_SPAWN_TIMEOUT)
+        return None
+    from ..parallel import process_group
+    with process_group(args.launcher, args.device) as device:
+        return _train(args, device)
+
+
+def _train(args, device):
     from ..config import Config
     from ..data import build_dataset
     from ..engine.train_loop import train_network
-    from ..engine.train_step import resolve_device
     from ..models import build_recognizer
+    from ..parallel import get_dist_info
     from ..utils.logging import get_root_logger
 
-    device = resolve_device(args.device)
+    info = get_dist_info()
     cfg = Config.fromfile(args.config)
     if args.work_dir is not None:
         cfg.work_dir = args.work_dir
     if args.resume_from is not None:
         cfg.resume_from = args.resume_from
     if args.autoscale_lr:
-        cfg.optimizer['lr'] = cfg.optimizer['lr'] * 1 / 8
+        cfg.optimizer['lr'] = cfg.optimizer['lr'] * info['world_size'] / 8
 
     os.makedirs(cfg.work_dir, exist_ok=True)
     logger = get_root_logger(cfg.get('log_level', 'INFO'))
-    # this run's log file, detached at the end so that runs in one process
-    # each write their own
-    log_file = logging.FileHandler(os.path.join(cfg.work_dir, 'train.log'))
+    # this run's log file, on rank 0 only, detached at the end so that runs
+    # in one process each write their own
+    log_file = logging.FileHandler(
+        os.path.join(cfg.work_dir, 'train.log')) if info['rank'] == 0 \
+        else logging.NullHandler()
     log_file.setFormatter(logging.Formatter(
         '%(asctime)s - %(name)s - %(levelname)s - %(message)s'))
     logger.addHandler(log_file)
     try:
+        logger.info('distributed info: %s', info)
         logger.info('config: %s', args.config)
         dtype = 'bfloat16' if args.bf16 else cfg.get('compute_dtype',
                                                      'float32')
@@ -133,7 +160,8 @@ def main(argv: Optional[Sequence[str]] = None):
                     len(dataset), dtype, device)
         extra_hooks = ([_profile_hook(args.profile,
                                       os.path.join(cfg.work_dir, 'profile'),
-                                      logger)] if args.profile else [])
+                                      logger)]
+                       if args.profile and info['rank'] == 0 else [])
         return train_network(model, dataset, cfg, validate=args.validate,
                              logger=logger, seed=args.seed or 0,
                              device=device, extra_hooks=extra_hooks)

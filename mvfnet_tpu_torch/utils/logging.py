@@ -14,13 +14,6 @@ from typing import Optional
 _LOGGER_NAME = 'mvfnet_tpu_torch'
 
 
-def _rank() -> int:
-    import torch.distributed as dist
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank()
-    return 0
-
-
 def get_root_logger(log_level: str = 'INFO',
                     log_file: Optional[str] = None) -> logging.Logger:
     """The package's logger, set up on the first call; later calls return
@@ -35,7 +28,8 @@ def get_root_logger(log_level: str = 'INFO',
     handler = logging.StreamHandler()
     handler.setFormatter(fmt)
     logger.addHandler(handler)
-    rank = _rank()
+    from ..parallel import world_rank
+    rank = world_rank()[1]
     if log_file is not None and rank == 0:
         fh = logging.FileHandler(log_file)
         fh.setFormatter(fmt)

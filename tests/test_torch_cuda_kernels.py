@@ -289,3 +289,48 @@ def test_prefetch_stages_through_two_pinned_buffers(cuda):
     assert len(set(bufs[:3])) == 1 and bufs[3] != bufs[0]
     assert stager.uploads == len(arrays)
     assert stager.bytes_uploaded == sum(a.nbytes for a in arrays)
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_synced_batchnorm_on_nccl_matches_plain(cuda, dtype):
+    """The port's synced BatchNorm in a one-rank NCCL group against the
+    plain one on the same input: output, input, weight and bias gradients
+    and running statistics (statistics in fp32 either way; bf16 output is
+    rounded once, so bf16 is held to its resolution)."""
+    import torch.distributed as dist
+    from mvfnet_tpu_torch.models.common import BatchNorm, set_sync_group
+    from mvfnet_tpu_torch.parallel import free_port
+    dist.init_process_group('nccl', init_method=f'tcp://127.0.0.1:'
+                            f'{free_port()}', world_size=1, rank=0)
+    try:
+        dt = getattr(torch, dtype)
+        gen = torch.Generator().manual_seed(0)
+        x = (torch.randn(12, 64, 28, 28, generator=gen) * 2 + 0.5).cuda()
+        g = torch.randn(12, 64, 28, 28, generator=gen).cuda().to(dt)
+        weight = torch.rand(64, generator=gen) + 0.5
+        bias = torch.rand(64, generator=gen) - 0.5
+        out = []
+        for sync in (False, True):
+            bn = BatchNorm(64).cuda()
+            with torch.no_grad():
+                bn.weight.copy_(weight)
+                bn.bias.copy_(bias)
+            set_sync_group(bn, dist.group.WORLD if sync else None)
+            xi = x.to(dt).contiguous(memory_format=torch.channels_last)
+            xi.requires_grad_()
+            y = bn(xi)
+            assert y.dtype == dt
+            (y.float() * g.float()).sum().backward()
+            out.append([t.float() for t in (
+                y, xi.grad, bn.weight.grad, bn.bias.grad, bn.running_mean,
+                bn.running_var)])
+        # relative to each tensor's largest value: fp32 sums in another
+        # order; bf16 results one rounding (2^-8) apart at most
+        tol = dict(float32=1e-4, bfloat16=2e-2)[dtype]
+        names = ('y', 'dx', 'dw', 'db', 'running_mean', 'running_var')
+        for name, a, b in zip(names, *out):
+            scale = a.abs().max().item()
+            err = (a - b).abs().max().item()
+            assert err <= tol * scale, (name, err, scale)
+    finally:
+        dist.destroy_process_group()

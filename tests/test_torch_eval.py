@@ -315,7 +315,7 @@ def test_cli_scores_a_jax_msgpack_as_its_pth(setup, tmp_path):
                if not k.endswith('num_batches_tracked'))
 
 
-def test_cli_refuses_what_is_not_ported(setup, tmp_path):
+def test_cli_refuses_what_is_not_ported(setup, tmp_path, monkeypatch):
     root, variables = setup
     config = write_config(root, tmp_path / 'cfg.py')
     calibrated = str(tmp_path / 'quant.msgpack')
@@ -323,8 +323,14 @@ def test_cli_refuses_what_is_not_ported(setup, tmp_path):
                               quant_stats={'act_scale': np.ones(3)}))
     with pytest.raises(NotImplementedError, match='A14'):
         cli.main([config, calibrated, '--device', 'cpu'])
-    with pytest.raises(NotImplementedError, match='A8'):
-        cli.main([config, str(root / 'model.pth'), '--launcher', 'env'])
+    # --launcher env needs torchrun's variables (tests/test_torch_dist.py
+    # runs the CLI under torchrun)
+    for k in ('MASTER_ADDR', 'MASTER_PORT', 'WORLD_SIZE', 'RANK',
+              'LOCAL_RANK'):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(KeyError, match='MASTER_ADDR'):
+        cli.main([config, str(root / 'model.pth'), '--launcher', 'env',
+                  '--device', 'cpu'])
     quant = tmp_path / 'quant.py'
     quant.write_text(f"_base_ = '{config}'\n"
                      "model = dict(backbone=dict(quant='int8_static'))\n")

@@ -153,7 +153,7 @@ def test_features_match_jax(setup, fcn_testing):
                                rtol=1e-6, atol=1e-8)
 
 
-def test_feature_cli_matches_jax(setup, tmp_path):
+def test_feature_cli_matches_jax(setup, tmp_path, monkeypatch):
     cfg, _ = cfgs(True)
     cfg.pop('fcn_testing')
     cfg.pop('dtype')
@@ -182,8 +182,13 @@ def test_feature_cli_matches_jax(setup, tmp_path):
     _, jax_feats = setup['want'][True]
     np.testing.assert_allclose(np.array(list(written.values())), jax_feats,
                                rtol=1e-6, atol=1e-8)
-    with pytest.raises(NotImplementedError, match='A8'):
-        cli.main([str(config), ckpt, '--launcher', 'env'])
+    # --launcher env needs torchrun's variables (tests/test_torch_dist.py
+    # runs the CLI under torchrun)
+    for k in ('MASTER_ADDR', 'MASTER_PORT', 'WORLD_SIZE', 'RANK',
+              'LOCAL_RANK'):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(KeyError, match='MASTER_ADDR'):
+        cli.main([str(config), ckpt, '--launcher', 'env', '--device', 'cpu'])
 
 
 def test_score_then_feature_pass_on_one_model(setup):

@@ -36,6 +36,9 @@ def _imported_roots(path):
 def test_port_sources_import_no_jax_package():
     files = _port_files()
     assert len(files) > 15
+    names = {os.path.relpath(f, PORT) for f in files}
+    assert {'parallel/__init__.py', 'parallel/dist.py',
+            'parallel/launch.py'} <= names
     bad = [(os.path.relpath(f, REPO), root) for f in files
            for root in _imported_roots(f) if root in FORBIDDEN]
     assert bad == []
@@ -56,6 +59,8 @@ def test_import_loads_no_jax_triton_or_kernel():
         'import mvfnet_tpu_torch.tools.report_accuracy\n'
         'import mvfnet_tpu_torch.utils.flops\n'
         'import mvfnet_tpu_torch.utils.msgpack_codec\n'
+        'import mvfnet_tpu_torch.parallel, mvfnet_tpu_torch.parallel.dist\n'
+        'import mvfnet_tpu_torch.parallel.launch\n'
         'from mvfnet_tpu_torch.ops import _cuda\n'
         'mods = [m for m in sys.modules if m.split(".")[0] in '
         '("jax", "flax", "msgpack", "triton") or m == "mvfnet_tpu" '
