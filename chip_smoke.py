@@ -85,9 +85,31 @@ Phases, each of which exits non-zero on failure:
    Every rank and torchrun run has a deadline; ``dist:`` lines. The
    ranks run this script again as ``chip_smoke.py --rank REPORT JOBS``.
 
+9. video files: prints a census of the host's video stack (cv2's
+   backends and FFmpeg, PyAV and decord looked up but not imported,
+   libavcodec), writes phase 5's frames as 8 mp4v files of 300 frames at
+   30 fps (cv2 must read back every frame and probe 300), then: (c) the
+   test CLI on the unchanged model and test pipeline of the 4x16 video
+   recipe (R50+MVF, T=4, ``PyAVDecode(accurate=False)``, 10 clips x 3
+   crops of 256^2, ``--fcn_testing``, bf16) as a warm-up, a timed and a
+   profiled pass: scores, printed accuracies against numpy, 2 + 3 bf16
+   fused launches a video at N = 120, one video against the plain path,
+   seek against sequential decode of the same indices; (d) the train CLI
+   for one epoch of 4 iterations of 12 x 4 x 224^2 on the recipe's train
+   and val pipelines, with an evaluation (2 + 3 launches a val video at
+   N = 4, none in the steps) and a checkpoint; (e) the flagship train
+   step from one state with and without ``with_cp``: loss, gradient norm
+   and BatchNorm statistics within 2e-2, each BatchNorm counting one
+   batch, and less peak memory with it; (f) R18+MVF, R34, R50 with
+   avg_down + avd + deep_stem and R50 with GN: a bf16 eval forward on the
+   card within 3e-2 of max|logit| of the fp32 forward on the CPU, the
+   fused launches expected, and one finite bf16 train step
+   (``video_data:``, ``with_cp:`` and ``options:`` lines).
+
 Prints the ``{"kernels": [...]}`` line (launches of the fused kernel per
-shape in phases 3, 5, 6 and 7, and per rank in phase 8's cases as
-``launches_dist``), the card's name and power limit,
+shape in phases 3, 5, 6 and 7, per rank in phase 8's cases as
+``launches_dist``, and per case in phase 9 as ``launches_video``), the
+card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Without CUDA, or without the
 repository beside it, it exits non-zero and prints no result.
 """
@@ -124,9 +146,15 @@ FUSED_SHAPES = [
     ('layer2', (240, 32, 32, 512), 128, 3),
     ('val_layer1', (8, 56, 56, 256), 64, 0),
     ('val_layer2', (8, 28, 28, 512), 128, 0),
+    ('video_layer1', (120, 64, 64, 256), 64, 0),
+    ('video_layer2', (120, 32, 32, 512), 128, 0),
+    ('video_val_layer1', (4, 56, 56, 256), 64, 0),
+    ('video_val_layer2', (4, 28, 28, 512), 128, 0),
 ]
-# the last two are the train CLI's mid-train evaluation (one clip of 8
-# frames at a 224^2 centre crop); their launches per val video
+# val_layer1-2 are the train CLI's mid-train evaluation (one clip of 8
+# frames at a 224^2 centre crop); their launches per val video. The video_
+# shapes are the 4x16 video recipe's (phase 9): its dense test (3 crops x
+# 10 clips x 4 frames at 256^2) and its train CLI's evaluation (4 frames)
 VAL_LAUNCHES = {'val_layer1': 2, 'val_layer2': 3}
 TIMED_RUNS = 25
 VIDEOS = 3
@@ -161,6 +189,14 @@ RESUME_TOL = 2e-2
 DIST_DEVICE, DIST_SHARED_DEVICE = 'cuda', 'cuda:0'
 DIST_STEPS, DIST_CLIPS = 3, 6
 DIST_TIMEOUT = 300
+# phase 9: the 4x16 video recipe, read from mp4v files of phase 5's frames
+# at VIDEO_FPS; its seek decode must equal its sequential decode of the same
+# indices within VIDEO_DECODE_DIFF (0: as on the CPU, with cv2 4.13's
+# FFmpeg)
+VIDEO_CONFIG = os.path.join(ROOT, 'configs', 'mvf', 'k400',
+                            'mvf_kinetics400_video_r50_4x16_dense.py')
+VIDEO_FPS = 30
+VIDEO_DECODE_DIFF = 0
 KERNEL = dict(name='fused_bottleneck', route='cuda',
               source='mvfnet_tpu_torch/csrc/fused_bottleneck.cu',
               replaces='mvfnet_tpu/ops/fused_block.py:144')
@@ -625,10 +661,10 @@ def host_census():
     return out
 
 
-def _synthetic_video(path, seed):
-    """DATA_FRAMES JPEGs of smooth random content that fades between two
-    coarse fields, with mid-frequency texture and mild noise (white noise
-    would encode at many times a real frame's size); their sizes."""
+def _synthetic_frames(seed):
+    """DATA_FRAMES frames of DATA_HW of smooth random content that fades
+    between two coarse fields, with mid-frequency texture and mild noise
+    (white noise would encode at many times a real frame's size)."""
     import cv2
     import numpy as np
     rs = np.random.RandomState(seed)
@@ -636,13 +672,19 @@ def _synthetic_video(path, seed):
     a, b = (rs.rand(6, 10, 3).astype(np.float32) * 255 for _ in range(2))
     mid = cv2.resize((rs.randn(32, 57, 3) * 20).astype(np.float32), (w, h))
     noise = [(rs.randn(h, w, 3) * 2).astype(np.float32) for _ in range(4)]
-    os.makedirs(path)
-    sizes = []
     for t in range(DATA_FRAMES):
         s = t / max(DATA_FRAMES - 1, 1)
         img = cv2.resize(a * (1 - s) + b * s, (w, h),
                          interpolation=cv2.INTER_CUBIC)
-        img = np.clip(img + mid + noise[t % 4], 0, 255).astype(np.uint8)
+        yield np.clip(img + mid + noise[t % 4], 0, 255).astype(np.uint8)
+
+
+def _synthetic_video(path, seed):
+    """The synthetic frames as JPEGs under ``path``; their sizes."""
+    import cv2
+    os.makedirs(path)
+    sizes = []
+    for t, img in enumerate(_synthetic_frames(seed)):
         name = os.path.join(path, f'img_{t + 1:05}.jpg')
         require(cv2.imwrite(name, img), f'cv2.imwrite failed for {name}')
         sizes.append(os.path.getsize(name))
@@ -736,8 +778,8 @@ def phase_data(root, ann):
     import torch
     from mvfnet_tpu_torch.config import Config
     from mvfnet_tpu_torch.data import (DataLoader, ShardedSampler,
-                                       build_dataset, default_collate,
-                                       device_norm_cfg)
+                                       build_dataset, dataset_decoder,
+                                       default_collate, device_norm_cfg)
     from mvfnet_tpu_torch.engine import eval as eval_mod
     from mvfnet_tpu_torch.engine import prefetch
     from mvfnet_tpu_torch.engine.train_step import make_eval_step
@@ -818,7 +860,7 @@ def phase_data(root, ann):
         # pipeline op, the collate and the pinned copy timed
         cfg = Config.fromfile(config)
         dataset = build_dataset(dict(cfg.data['test']))
-        decoder = dataset.pipeline.transforms[1].decoder
+        decoder = dataset_decoder(dataset)
         step = make_eval_step(model, norm_cfg=device_norm_cfg(
             cfg.data['test']['pipeline']))
         op_ms, item_ms, direct, pinned = {}, [], [], None
@@ -1661,9 +1703,476 @@ def phase_dist(root, ann):
     return launches
 
 
+def video_census():
+    """The host's video stack: cv2's video backends and whether its build
+    has FFmpeg, whether PyAV and decord are installed (looked up, never
+    imported: the port decodes with cv2), and libavcodec's headers and
+    libraries (for a native decode worker)."""
+    import ctypes.util
+    import importlib.util
+    import cv2
+    out = {}
+    try:
+        reg = cv2.videoio_registry
+        out['cv2_backends'] = [reg.getBackendName(b)
+                               for b in reg.getBackends()]
+        out['cv2_stream_backends'] = [reg.getBackendName(b)
+                                      for b in reg.getStreamBackends()]
+    except AttributeError:
+        out['cv2_backends'] = None
+    info = cv2.getBuildInformation()
+    out['cv2_ffmpeg'] = [line.strip() for line in info.splitlines()
+                         if line.strip().startswith('FFMPEG')]
+    for mod in ('av', 'decord'):
+        out[mod] = importlib.util.find_spec(mod) is not None
+    out['avcodec.h'] = [p for p in (
+        '/usr/include/libavcodec/avcodec.h',
+        '/usr/include/x86_64-linux-gnu/libavcodec/avcodec.h',
+        '/usr/local/include/libavcodec/avcodec.h') if os.path.exists(p)]
+    out['libavcodec'] = ctypes.util.find_library('avcodec')
+    out['libavformat'] = ctypes.util.find_library('avformat')
+    return out
+
+
+def _synthetic_mp4(path, seed):
+    """The synthetic frames as an mp4v file at VIDEO_FPS; its size, and the
+    frames cv2 reads back and probes."""
+    import cv2
+    from mvfnet_tpu_torch.data.video_io import probe_num_frames
+    h, w = DATA_HW
+    writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*'mp4v'),
+                             VIDEO_FPS, (w, h))
+    require(writer.isOpened(), f'cv2.VideoWriter cannot write mp4v to '
+                               f'{path}: {video_census()}')
+    for img in _synthetic_frames(seed):
+        writer.write(img)
+    writer.release()
+    cap = cv2.VideoCapture(path)
+    read = 0
+    while cap.read()[0]:
+        read += 1
+    cap.release()
+    return os.path.getsize(path), read, probe_num_frames(path)
+
+
+def write_videos(root):
+    """DATA_VIDEOS mp4v files under ``root/videos`` and a test and a train
+    list (each video TRAIN_REPEAT times); cv2 must read back every frame
+    and probe DATA_FRAMES. Returns the test list and the mean file size."""
+    from concurrent.futures import ThreadPoolExecutor
+    vdir = os.path.join(root, 'videos')
+    os.makedirs(vdir)
+    with ThreadPoolExecutor(min(DATA_VIDEOS, os.cpu_count() or 1)) as pool:
+        made = list(pool.map(
+            lambda i: _synthetic_mp4(os.path.join(vdir, f'video_{i}.mp4'), i),
+            range(DATA_VIDEOS)))
+    for i, (_, read, probed) in enumerate(made):
+        require(read == probed == DATA_FRAMES,
+                f'video_{i}.mp4: cv2 read {read} frames and probed '
+                f'{probed}, {DATA_FRAMES} written')
+    ann = os.path.join(vdir, 'test_list.txt')
+    with open(ann, 'w') as f:
+        f.writelines(f'video_{i}.mp4 {i}\n' for i in range(DATA_VIDEOS))
+    with open(os.path.join(vdir, 'train_list.txt'), 'w') as f:
+        f.writelines(f'video_{i}.mp4 {i}\n'
+                     for _ in range(TRAIN_REPEAT) for i in range(DATA_VIDEOS))
+    return ann, statistics.mean(m[0] for m in made)
+
+
+def write_video_config(root, name, extra):
+    """A config that inherits the 4x16 video recipe unchanged but for its
+    splits' annotation files and data roots, and ``extra`` lines."""
+    import re
+    vdir = os.path.join(root, 'videos')
+    data = {split: dict(ann_file=os.path.join(vdir, f'{ann}_list.txt'),
+                        data_root=vdir)
+            for split, ann in (('train', 'train'), ('val', 'test'),
+                               ('test', 'test'))}
+    text = re.sub(r'\binf\b', "float('inf')", '\n'.join(
+        [f'_base_ = {VIDEO_CONFIG!r}', f'data = dict(**{data!r})']
+        + extra + ['']))
+    path = os.path.join(root, f'{name}.py')
+    with open(path, 'w') as f:
+        f.write(text)
+    return path
+
+
+def _video_test_cli(root, ann):
+    """(c) the test CLI on the videos with the recipe's model and test
+    pipeline; returns the fused launches of the timed pass."""
+    import pickle
+    import re
+
+    import numpy as np
+    import torch
+    from mvfnet_tpu_torch.config import Config
+    from mvfnet_tpu_torch.data import (build_dataset, dataset_decoder,
+                                       device_norm_cfg, video_io)
+    from mvfnet_tpu_torch.engine.train_step import make_eval_step
+    from mvfnet_tpu_torch.ops import fused_block as fb
+    from mvfnet_tpu_torch.tools import test_recognizer as cli
+
+    config = write_video_config(root, 'video_test', [])
+    cfg = Config.fromfile(config)
+    clip_len = cfg.model['module_cfg']['n_segment']
+    views = [op for op in cfg.data['test']['pipeline']
+             if op['type'] == 'SampleFrames'][0]['num_clips'] * 3
+    require(clip_len == 4 and views == 30, f'4x16 recipe: T={clip_len}, '
+                                           f'{views} views')
+    shapes = {('bfloat16', views * clip_len) + shape[1:] + (cm,): n
+              for _, shape, cm, n in FUSED_SHAPES if n}
+    expected = {k: n * DATA_VIDEOS for k, n in shapes.items()}
+    ckpt = os.path.join(root, 'mvf_r50_random.pth')
+    out = os.path.join(root, 'scores_video.pkl')
+    run_cli(config, ckpt, out)                             # warm-up pass
+    torch.cuda.synchronize()
+    fb.bottleneck_eval_cuda.launches = 0
+    fb.bottleneck_eval_cuda.launches_by_shape.clear()
+    t0 = time.perf_counter()
+    text = run_cli(config, ckpt, out)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(fb.bottleneck_eval_cuda.launches_by_shape)
+    with open(out, 'rb') as f:
+        rows = pickle.load(f)
+    require(len(rows) == DATA_VIDEOS and all(r.shape == (400,)
+                                             for r in rows),
+            f'video test CLI: scores {[r.shape for r in rows]}')
+    got = np.stack(rows)
+    require(bool(np.isfinite(got).all()), 'video test CLI: non-finite')
+    require(bool((np.abs(got.sum(1) - 1) <= 1e-3).all()),
+            f'video test CLI: class probabilities sum to {got.sum(1)}')
+    require(launches == expected,
+            f'video test CLI: fused launches {launches}, expected '
+            f'{expected}')
+    printed = dict(re.findall(r'^(Top-1|Top-5|Mean Class) Accuracy '
+                              r'= (\d+\.\d\d)$', text, re.M))
+    want = numpy_accuracy(got, list(range(DATA_VIDEOS)))
+    require(printed == {k: f'{v * 100:.02f}' for k, v in zip(
+        ('Top-1', 'Top-5', 'Mean Class'), want)},
+        f'video test CLI: printed {printed}, numpy {want}')
+
+    # one video through the kernel and through the plain path, on the
+    # frames the pipeline decoded
+    dataset = build_dataset(dict(cfg.data['test']))
+    decoder = dataset_decoder(dataset)
+    require(decoder == video_io.DECODERS[False],
+            f'video test CLI decoded with {decoder}')
+    model = cli.build_model(cfg, True, 'prob')
+    cli.load_checkpoint(model, ckpt)
+    model.to('cuda')
+    step = make_eval_step(model, norm_cfg=device_norm_cfg(
+        cfg.data['test']['pipeline']))
+    video = np.asarray(dataset[0]['img_group'])[None]
+    one = compare_with_plain('video', step, model, video)
+    require(one == shapes, f'video: one video launched {one}, expected '
+                           f'{shapes}')
+
+    # seek against sequential decode of the pipeline's indices, and the
+    # decode time per frame
+    sampler = dataset.pipeline.transforms[0]
+    diff, seek_ms, acc_ms, n_frames = 0, 0.0, 0.0, 0
+    for info in dataset.video_infos:
+        inds = sampler.get_frame_inds(DATA_FRAMES, True,
+                                      np.random.default_rng(0))
+        t1 = time.perf_counter()
+        seek = video_io.decode_frames_seek(info['filename'], inds)
+        t2 = time.perf_counter()
+        acc = video_io.decode_frames_accurate(info['filename'], inds)
+        t3 = time.perf_counter()
+        seek_ms += (t2 - t1) * 1e3
+        acc_ms += (t3 - t2) * 1e3
+        n_frames += len(inds)
+        diff = max(diff, max(int(np.abs(a.astype(np.int16) - b).max())
+                             for a, b in zip(seek, acc)))
+    print(f'video decode: seek vs sequential max abs diff {diff} over '
+          f'{n_frames} frames')
+    require(diff <= VIDEO_DECODE_DIFF,
+            f'seek and sequential decode differ by {diff} > '
+            f'{VIDEO_DECODE_DIFF}')
+    prof = device_profile(lambda: run_cli(config, ckpt, out))
+    require('busy_ms' in prof, f'video profile: {prof}')
+    print('video_data: ' + json.dumps(dict(
+        case='test_cli', decoder=decoder, videos=DATA_VIDEOS,
+        frames_per_video=views * clip_len, pass_s=secs,
+        videos_per_s=DATA_VIDEOS / secs,
+        clips_per_s=DATA_VIDEOS * views / secs,
+        seek_decode_ms_per_frame=seek_ms / n_frames,
+        sequential_decode_ms_per_frame=acc_ms / n_frames,
+        seek_vs_sequential_max_abs_diff=diff,
+        device_busy_ms=prof['busy_ms'], device_idle_share=prof['idle_share'],
+        profiled_pass_ms=prof['wall_ms'],
+        fused_launches=sum(launches.values()), card=card_line())))
+    print('video profile: ' + json.dumps(prof))
+    del model, step
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _video_train_cli(root):
+    """(d) one epoch of the train CLI on the videos with the recipe's
+    train and val pipelines; returns the fused launches."""
+    import math
+
+    import torch
+    from mvfnet_tpu_torch.data import (DataLoader, ShardedSampler,
+                                       build_dataset)
+    from mvfnet_tpu_torch.ops import fused_block as fb
+    from mvfnet_tpu_torch.tools import train_recognizer as cli
+    config = write_video_config(root, 'video_train', [
+        'total_epochs = 1', 'resume_from = None',
+        'checkpoint_config = dict(interval=1)',
+        'log_config = dict(interval=1)', 'eval_interval = 1'])
+    work = os.path.join(root, 'train_video')
+    fb.bottleneck_eval_cuda.launches = 0
+    fb.bottleneck_eval_cuda.launches_by_shape.clear()
+    t0 = time.perf_counter()
+    loop = cli.main([config, '--work_dir', work, '--validate'])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = dict(fb.bottleneck_eval_cuda.launches_by_shape)
+    iters, _ = train_log(work)
+    losses = [r['loss'] for r in iters]
+    clip_len = loop.cfg.model['module_cfg']['n_segment']
+    expected = {('bfloat16', clip_len) + shape[1:] + (cm,):
+                VAL_LAUNCHES[name] * DATA_VIDEOS
+                for name, shape, cm, _ in FUSED_SHAPES
+                if name in VAL_LAUNCHES}
+    require(loop.iters_per_epoch == 4 == len(iters) == loop.step,
+            f'video train CLI: {loop.iters_per_epoch} iterations an epoch, '
+            f'{len(iters)} logged, {loop.step} steps')
+    require(all(math.isfinite(v) for r in iters for v in r.values()),
+            f'video train CLI: non-finite train metrics {iters}')
+    require(FIRST_LOSS[0] <= losses[0] <= FIRST_LOSS[1],
+            f'video train CLI: first loss {losses[0]} outside {FIRST_LOSS}')
+    for name in ('epoch_1.pth', 'latest.pth', 'train.log'):
+        require(os.path.exists(os.path.join(work, name)),
+                f'video train CLI: {name} not written')
+    require(launches == expected,
+            f'video train CLI: fused launches {launches}, expected '
+            f'{expected} (none in the train steps)')
+    require(len(loop.eval_history) == 1 and loop.eval_history[0][
+        'scores'].shape == (DATA_VIDEOS, 400), 'video train CLI: evaluation')
+    train = build_dataset(dict(loop.cfg.data['train']))
+    clip = list(train[0]['img_group'].shape)
+    loader = DataLoader(train, loop.loader.batch_size,
+                        ShardedSampler(len(train), shuffle=False),
+                        num_workers=loop.cfg.data['workers_per_gpu'],
+                        drop_last=True)
+    t1 = time.perf_counter()
+    n = sum(len(b['img_group']) for b in loader)
+    loader_s = time.perf_counter() - t1
+    secs = [r['s'] for r in iters[1:]]
+    med = statistics.median(secs)
+    print('video_data: ' + json.dumps(dict(
+        case='train_cli', batch=[loop.loader.batch_size] + clip,
+        iterations=len(iters), run_s=run_s, s_per_iter=[r['s'] for r in
+                                                       iters],
+        median_s_per_iter=med, clips_per_s=loop.loader.batch_size / med,
+        loss=losses, loader_videos_per_s=n / loader_s,
+        loader_workers=loop.cfg.data['workers_per_gpu'],
+        fused_launches=sum(launches.values()), card=card_line())))
+    del loop, train, loader
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _flagship_state():
+    """The flagship recognizer (seed 0), its recipe's schedule and a step
+    builder, on the card."""
+    import torch
+    from mvfnet_tpu_torch.config import Config
+    from mvfnet_tpu_torch.engine.optim import (build_lr_schedule,
+                                               build_optimizer,
+                                               frozen_prefixes_from_backbone)
+    from mvfnet_tpu_torch.engine.train_step import make_train_step
+    from mvfnet_tpu_torch.models import build_recognizer
+    cfg = Config.fromfile(CONFIG)
+
+    def model_for(backbone=None, in_channels=None, mvf=True, dtype=None):
+        mcfg = dict(cfg.model, dtype=dtype or cfg.compute_dtype)
+        if backbone is not None:
+            mcfg['backbone'] = dict(cfg.model['backbone'], **backbone)
+        if in_channels is not None:
+            mcfg['cls_head'] = dict(cfg.model['cls_head'],
+                                    in_channels=in_channels)
+        if not mvf:
+            mcfg.pop('module_cfg')
+        model = build_recognizer(mcfg, train_cfg=cfg.train_cfg,
+                                 test_cfg=dict(average_clips=None))
+        model.init_weights(torch.Generator().manual_seed(0),
+                           randomize_bn=True)
+        return model
+
+    schedule = build_lr_schedule(cfg.lr_config, cfg.optimizer['lr'],
+                                 ITERS_PER_EPOCH, cfg.total_epochs)
+
+    def step_for(model, remat=False):
+        opt = build_optimizer(
+            model, cfg.optimizer, schedule,
+            grad_clip=cfg.optimizer_config['grad_clip'],
+            frozen_prefixes=frozen_prefixes_from_backbone(
+                cfg.model['backbone']))
+        return make_train_step(model, opt, schedule,
+                               norm_cfg=dict(cfg.img_norm_cfg, device=True),
+                               remat=remat)
+    return cfg, model_for, step_for
+
+
+def _with_cp():
+    """(e) the flagship train step from one state with and without
+    ``with_cp``: the same loss, gradient norm and BatchNorm statistics,
+    less peak memory."""
+    import copy
+
+    import numpy as np
+    import torch
+    from mvfnet_tpu_torch.models.common import BatchNorm
+    cfg, model_for, step_for = _flagship_state()
+    base = model_for()
+    rs = np.random.RandomState(0)
+    batch = (rs.randint(0, 256, TRAIN_BATCH, dtype=np.uint8),
+             rs.randint(0, 400, TRAIN_BATCH[0]))
+    runs = {}
+    for remat in (False, True):
+        model = copy.deepcopy(base).to('cuda')
+        step = step_for(model, remat)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        m = step(*batch, torch.Generator(device='cuda').manual_seed(1))
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        stats = torch.cat([b.detach().float().reshape(-1).cpu()
+                           for mod in model.modules()
+                           if isinstance(mod, BatchNorm)
+                           for b in (mod.running_mean, mod.running_var)])
+        counts = {int(mod.num_batches_tracked) for mod in model.modules()
+                  if isinstance(mod, BatchNorm)}
+        secs = []
+        for i in range(3):
+            t0 = time.perf_counter()
+            step(*batch, torch.Generator(device='cuda').manual_seed(2 + i))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        runs[remat] = dict(loss=m['loss'].item(),
+                           grad_norm=m['grad_norm'].item(), peak=peak,
+                           stats=stats, counts=counts,
+                           step_ms=statistics.median(secs) * 1e3)
+        del model, step, m
+        torch.cuda.empty_cache()
+    off, on = runs[False], runs[True]
+    loss_rel = abs(on['loss'] - off['loss']) / abs(off['loss'])
+    norm_rel = abs(on['grad_norm'] - off['grad_norm']) / abs(off['grad_norm'])
+    stats_rel = float((on['stats'] - off['stats']).abs().max()
+                      / off['stats'].abs().max())
+    print('with_cp: ' + json.dumps(dict(
+        batch=list(TRAIN_BATCH), dtype=cfg.compute_dtype,
+        loss=[off['loss'], on['loss']],
+        grad_norm=[off['grad_norm'], on['grad_norm']],
+        loss_rel=loss_rel, grad_norm_rel=norm_rel, bn_stats_rel=stats_rel,
+        num_batches_tracked=[sorted(off['counts']), sorted(on['counts'])],
+        step_ms=[off['step_ms'], on['step_ms']],
+        max_memory_allocated_gib=[off['peak'] / 2 ** 30,
+                                  on['peak'] / 2 ** 30],
+        tol=RESUME_TOL, card=card_line())))
+    require(max(loss_rel, norm_rel, stats_rel) <= RESUME_TOL,
+            f'with_cp against without: loss {loss_rel}, grad norm '
+            f'{norm_rel}, BN statistics {stats_rel} relative')
+    require(on['counts'] == off['counts'] == {1},
+            f'with_cp: BatchNorm counted {on["counts"]} batches, without '
+            f'{off["counts"]}')
+    require(on['peak'] < off['peak'],
+            f'with_cp: peak memory {on["peak"]} not below {off["peak"]}')
+
+
+# (f) the ResNet's options on the flagship's model: (name, backbone
+# options, head input channels, MVF in stages 3-4, fused launches of one
+# eval video by shape name)
+OPTIONS = [
+    ('r18_mvf', dict(depth=18), 512, True, {}),
+    ('r34', dict(depth=34), 512, False, {}),
+    ('r50_avg_down_avd_deep_stem', dict(avg_down=True, avd=True,
+                                        deep_stem=True), 2048, True,
+     VAL_LAUNCHES),
+    ('r50_gn', dict(norm_cfg=dict(type='GN', num_groups=32)), 2048, True,
+     {}),
+]
+
+
+def _layer_options():
+    """(f) each option: a bf16 eval forward on the card against the same
+    weights' fp32 forward on the CPU, and one finite bf16 train step;
+    returns the fused launches of the eval forwards."""
+    import numpy as np
+    import torch
+    from mvfnet_tpu_torch.engine.train_step import make_eval_step
+    from mvfnet_tpu_torch.ops import fused_block as fb
+    cfg, model_for, step_for = _flagship_state()
+    frames = TRAIN_BATCH[1]
+    rs = np.random.RandomState(3)
+    video = rs.randint(0, 256, (1, frames) + TRAIN_BATCH[2:], dtype=np.uint8)
+    batch = (rs.randint(0, 256, (2,) + TRAIN_BATCH[1:], dtype=np.uint8),
+             rs.randint(0, 400, 2))
+    norm = dict(cfg.img_norm_cfg, device=True)
+    shapes = {name: ('bfloat16',) + shape + (cm,)
+              for name, shape, cm, _ in FUSED_SHAPES}
+    launches, lines = {}, []
+    for name, backbone, channels, mvf, per_video in OPTIONS:
+        model = model_for(backbone, channels, mvf)
+        cpu = model_for(backbone, channels, mvf, dtype='float32')
+        cpu.load_state_dict(model.state_dict())
+        want = make_eval_step(cpu, norm_cfg=norm, device='cpu')(cpu, video)
+        fb.bottleneck_eval_cuda.launches_by_shape.clear()
+        got = make_eval_step(model, norm_cfg=norm)(model, video).float().cpu()
+        launches[name] = dict(fb.bottleneck_eval_cuda.launches_by_shape)
+        err = float((got - want).abs().max())
+        tol = 3e-2 * float(want.abs().max())
+        step = step_for(model)
+        m = step(*batch, torch.Generator(device='cuda').manual_seed(0))
+        loss, grad_norm = m['loss'].item(), m['grad_norm'].item()
+        lines.append(dict(name=name, backbone=backbone, mvf=mvf,
+                          max_abs_err=err, tol=tol, argmax_agree=bool(
+                              (got.argmax(-1) == want.argmax(-1)).all()),
+                          loss=loss, grad_norm=grad_norm,
+                          fused_launches=sum(launches[name].values())))
+        require(bool(torch.isfinite(got).all()) and err <= tol,
+                f'{name}: bf16 card vs fp32 CPU logits {err} > {tol}')
+        require(np.isfinite(loss) and np.isfinite(grad_norm),
+                f'{name}: train step loss {loss}, grad norm {grad_norm}')
+        want_launches = {shapes[k]: n for k, n in per_video.items()}
+        require(launches[name] == want_launches,
+                f'{name}: fused launches {launches[name]}, expected '
+                f'{want_launches}')
+        del model, cpu, step, m
+        torch.cuda.empty_cache()
+    print('options: ' + json.dumps(dict(options=lines, card=card_line())))
+    return launches
+
+
+def phase_video(root):
+    """Phase 9, video files, in ``root`` beside phase 5's checkpoint:
+    returns the fused launches by case."""
+    import cv2
+    t0 = time.perf_counter()
+    print('host: ' + json.dumps(dict(video=video_census())))
+    ann, size = write_videos(root)
+    print(f'video set: {DATA_VIDEOS} mp4v videos x {DATA_FRAMES} frames of '
+          f'{DATA_HW[1]}x{DATA_HW[0]} at {VIDEO_FPS} fps, mean '
+          f'{size:.0f} bytes, written and read back in '
+          f'{time.perf_counter() - t0:.3f} s with cv2 {cv2.__version__}')
+    launches = dict(test_cli=_video_test_cli(root, ann),
+                    train_cli=_video_train_cli(root))
+    _with_cp()
+    launches.update(_layer_options())
+    print(f'phase 9: {time.perf_counter() - t0:.3f} s')
+    return launches
+
+
 def phase_rawframes():
-    """Phases 5-8 on one rawframe dataset in a temporary directory;
-    returns their fused-kernel launches by case and shape."""
+    """Phases 5-8 on one rawframe dataset in a temporary directory, then
+    phase 9 on the same frames as video files; returns their fused-kernel
+    launches by case and shape."""
     import tempfile
 
     import cv2
@@ -1679,8 +2188,9 @@ def phase_rawframes():
         train_launches, resumed_losses = phase_train_cli(root)
         feature_launches = phase_entry_points(root, ann, resumed_losses)
         dist_launches = phase_dist(root, ann)
+        video_launches = phase_video(root)
         return (data_launches, train_launches, feature_launches,
-                dist_launches)
+                dist_launches, video_launches)
 
 
 def main():
@@ -1710,7 +2220,7 @@ def main():
         launches = phase_slice()
         phase_train()
         (data_launches, train_launches, feature_launches,
-         dist_launches) = phase_rawframes()
+         dist_launches, video_launches) = phase_rawframes()
         for r in records:
             key = (r['dtype'],) + tuple(r['shape'])
             r['launches'] = launches.get(key, 0)
@@ -1721,6 +2231,8 @@ def main():
             r['launches_features'] = feature_launches.get(key, 0)
             r['launches_dist'] = {case: [n.get(key, 0) for n in ranks]
                                   for case, ranks in dist_launches.items()}
+            r['launches_video'] = {case: n.get(key, 0)
+                                   for case, n in video_launches.items()}
     except SmokeFailure as e:
         print(f'chip_smoke: FAILED: {e}', file=sys.stderr)
         return 1

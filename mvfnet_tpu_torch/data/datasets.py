@@ -1,15 +1,15 @@
 """Datasets: annotation parsing + per-sample pipeline execution (counterpart
 of ``mvfnet_tpu/data/datasets.py``).
 
-Reference: ``codes/datasets/{base,rawframes_dataset,pkl_dataset}.py``. No
+Reference: ``codes/datasets/{base,rawframes_dataset,video_dataset,
+pkl_dataset}.py``. No
 torch Dataset dependency: these are plain map-style objects consumed by the
 threaded loader.
 
 Per-sample determinism: ``__getitem__`` seeds a ``numpy.random.Generator``
 from ``(base_seed, epoch, idx)`` and passes it through the pipeline as
 ``results['rng']``, so augmentation is reproducible and worker-order
-independent (the reference relied on global RNG state). ``VideoDataset`` is
-not ported yet (``ROADMAP.md``).
+independent (the reference relied on global RNG state).
 """
 
 from __future__ import annotations
@@ -103,6 +103,52 @@ class RawFramesDataset(BaseDataset):
         results['rng'] = self._make_rng(idx)
         results['vid_idx'] = idx
         return self.pipeline(results)
+
+
+@DATASETS.register_module
+class VideoDataset(BaseDataset):
+    """Ann lines: ``file.mp4 label``, or ``file.mp4`` alone (label 0: a
+    feature-extraction list). The frame count comes from the container
+    (``SampleFrames`` probes it). When the pipeline gives ``None`` (an
+    unreadable container or a failed decode) another index is drawn with
+    ``rng.integers(0, len)`` from the same generator, up to ``num_retries``
+    tries in all, then ``RuntimeError`` (reference
+    ``video_dataset.py:57-76``): the JAX package's draws, one for one."""
+
+    def __init__(self, ann_file, pipeline, data_root=None, test_mode=False,
+                 num_retries=10, modality='RGB', seed=0):
+        super().__init__(ann_file, pipeline, data_root, test_mode, modality,
+                         seed)
+        self._num_retries = num_retries
+
+    def load_annotations(self):
+        video_infos = []
+        with open(self.ann_file) as fin:
+            for line in fin:
+                split = line.split()
+                if not split:
+                    continue
+                filename, label = (split[0], split[1]) if len(split) > 1 \
+                    else (split[0], 0)
+                if self.data_root is not None:
+                    filename = osp.join(self.data_root, filename)
+                video_infos.append(dict(filename=filename, label=int(label)))
+        return video_infos
+
+    def prepare_frames(self, idx):
+        rng = self._make_rng(idx)
+        for _ in range(self._num_retries):
+            results = copy.deepcopy(self.video_infos[idx])
+            results['modality'] = self.modality
+            results['test_mode'] = self.test_mode
+            results['rng'] = rng
+            results['vid_idx'] = idx
+            data = self.pipeline(results)
+            if data is not None:
+                return data
+            idx = int(rng.integers(0, len(self.video_infos)))
+        raise RuntimeError(
+            f'Failed to fetch video after {self._num_retries} retries.')
 
 
 @DATASETS.register_module

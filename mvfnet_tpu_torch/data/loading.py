@@ -1,11 +1,14 @@
 """Frame loading pipeline ops (counterpart of ``mvfnet_tpu/data/loading.py``).
 
-``FrameSelector`` (raw JPEG frames) and ``PklLoader`` (pickled JPEG-bytes
-lists), from the reference's loader vocabulary
-(``codes/datasets/pipelines/loading.py:375-475``). Frames decode with
-OpenCV's ``cv2.imdecode`` into HWC uint8 BGR, as in the JAX package. The
-video decoders and the native batch decode worker are not ported yet
-(``ROADMAP.md``).
+``FrameSelector`` (raw JPEG frames), ``PklLoader`` (pickled JPEG-bytes
+lists) and the four video decoders ``PyAVDecode``, ``DecordDecode``,
+``OpenCVDecode`` and ``PIMSDecode``, from the reference's loader vocabulary
+(``codes/datasets/pipelines/loading.py:134-475``). Frames decode with
+OpenCV into HWC uint8 BGR, as in the JAX package: JPEGs with
+``cv2.imdecode``, video containers with ``cv2.VideoCapture``
+(``video_io.py``) under every decoder's config name. Each op's
+``decoder`` names what it runs. The native batch decode worker is not
+ported yet (``ROADMAP.md``, A3).
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import cv2
 import numpy as np
 
 from .builder import PIPELINES
+from .video_io import DECODERS, decode_frames_accurate, decode_frames_seek
 
 # the one JPEG decoder of the port's host pipeline, named in logs and in
 # chip_smoke.py's output
@@ -100,6 +104,69 @@ class FrameSelector:
         results['img_group'] = imgs
         results['ori_shape'] = imgs[0].shape
         return results
+
+
+class _VideoDecodeBase:
+    """Video decode op: ``results['frame_inds']`` of ``results['filename']``
+    into ``img_group``; any failure or exception gives ``None``, so that
+    the dataset draws another video (reference ``loading.py:222-225``)."""
+
+    accurate = True
+
+    @property
+    def decoder(self) -> str:
+        return DECODERS[self.accurate]
+
+    def __call__(self, results):
+        inds = np.asarray(results['frame_inds']).reshape(-1)
+        try:
+            if self.accurate:
+                frames = decode_frames_accurate(results['filename'], inds)
+            else:
+                frames = decode_frames_seek(results['filename'], inds)
+        except Exception:
+            frames = None
+        if frames is None:
+            return None
+        results['img_group'] = frames
+        results['ori_shape'] = frames[0].shape
+        return results
+
+
+@PIPELINES.register_module
+class PyAVDecode(_VideoDecodeBase):
+    """The reference's PyAVDecode (``loading.py:134-231``) by name: cv2
+    decodes, sequentially with ``accurate``, by seek without."""
+
+    def __init__(self, multi_thread: bool = False, accurate: bool = True):
+        self.multi_thread = multi_thread
+        self.accurate = accurate
+
+
+@PIPELINES.register_module
+class DecordDecode(_VideoDecodeBase):
+    """The reference's DecordDecode (``loading.py:282-334``) by name: cv2
+    decodes sequentially."""
+
+    def __init__(self, **kwargs):
+        self.accurate = True
+
+
+@PIPELINES.register_module
+class OpenCVDecode(_VideoDecodeBase):
+    """The reference's OpenCVDecode (``loading.py:337-372``): by seek."""
+
+    def __init__(self, **kwargs):
+        self.accurate = False
+
+
+@PIPELINES.register_module
+class PIMSDecode(_VideoDecodeBase):
+    """The reference's PIMSDecode (``loading.py:234-279``) by name: cv2
+    decodes sequentially."""
+
+    def __init__(self, **kwargs):
+        self.accurate = True
 
 
 @PIPELINES.register_module

@@ -37,6 +37,16 @@ class Compose:
         return f'{type(self).__name__}({self.transforms})'
 
 
+def dataset_decoder(dataset) -> Optional[str]:
+    """What decodes a dataset's frames (a ``RepeatDataset``'s inner one),
+    for the CLIs' logs: the ``decoder`` of the first pipeline op that names
+    one (``cv2.imdecode``, or cv2's video capture by seek or sequential
+    read), or None."""
+    dataset = getattr(dataset, 'dataset', dataset)
+    return next((t.decoder for t in dataset.pipeline.transforms
+                 if hasattr(t, 'decoder')), None)
+
+
 def device_norm_cfg(pipeline) -> Optional[Dict[str, Any]]:
     """The constants of a pipeline config's ``Normalize(device=True)`` node
     (without its ``type``), or None when the host normalizes (counterpart

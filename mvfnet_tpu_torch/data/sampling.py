@@ -102,10 +102,15 @@ class SampleFrames:
 
     def __call__(self, results: dict) -> dict:
         if 'total_frames' not in results:
-            # the VideoDataset path probes the container for its frame count
-            raise NotImplementedError(
-                'SampleFrames without total_frames needs VideoDataset and '
-                'its video probe, which are not ported yet (ROADMAP.md)')
+            # the VideoDataset path probes the container for its frame
+            # count; an unreadable container gives None, and the dataset
+            # draws another video
+            from .video_io import probe_num_frames
+            try:
+                results['total_frames'] = probe_num_frames(
+                    results['filename'])
+            except (IOError, OSError):
+                return None
         total_frames = results['total_frames']
         rng = results.get('rng')
         results['frame_inds'] = self.get_frame_inds(

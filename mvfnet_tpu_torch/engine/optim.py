@@ -7,8 +7,10 @@ names) and with ``torch.optim.SGD`` in place of an optax chain:
   buffer), momentum, nesterov
 - paramwise options (``bias_lr_mult``, ``bias_decay_mult``,
   ``norm_decay_mult``), with the reference's norm regex
-  ``(bn|gn)(\\d+)?.(weight|bias)``, which misses a residual downsample's BN
-  (``downsample.1.*``): that BN gets full weight decay, as in the reference
+  ``(bn|gn)(\\d+)?.(weight|bias)``, which takes the deep stem's
+  ``stem_bn*`` and a GroupNorm's affine (named ``bn*`` as a BatchNorm's) and
+  misses a residual downsample's norm (``downsample.1.*``, the avg_down
+  shortcut's too): that norm gets full weight decay, as in the reference
 - frozen parameters: in no group, so no update, no momentum and no decay;
   they keep their gradients, and the clip counts them, as the JAX chain
   clips before it freezes
@@ -111,12 +113,13 @@ def param_label(name: str, frozen_prefixes: Sequence[str] = ()) -> str:
 
 
 def frozen_prefixes_from_backbone(backbone_cfg: Dict[str, Any]) -> tuple:
-    """The reference's ``frozen_stages`` (stem and stages 1..k) and
-    ``norm_frozen`` (every backbone BN's affine) as name prefixes."""
+    """The reference's ``frozen_stages`` (stem, the deep stem's too, and
+    stages 1..k) and ``norm_frozen`` (every backbone norm's affine) as name
+    prefixes."""
     prefixes = []
     frozen_stages = backbone_cfg.get('frozen_stages', -1)
     if frozen_stages is not None and frozen_stages >= 0:
-        prefixes += ['backbone.conv1.', 'backbone.bn1.']
+        prefixes += ['backbone.conv1.', 'backbone.bn1.', 'backbone.stem_']
         prefixes += [f'backbone.layer{i}.'
                      for i in range(1, frozen_stages + 1)]
     if backbone_cfg.get('norm_frozen'):

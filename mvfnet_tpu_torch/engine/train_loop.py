@@ -20,10 +20,8 @@ every rank waits at a barrier after each checkpoint.
 
 ``resume_from`` and ``load_from`` take the port's ``.pth`` checkpoints and
 the JAX package's ``.msgpack`` ones (weights, optax state and the
-``.meta.json`` sidecar).
-
-Refused with ``NotImplementedError``, naming its ``ROADMAP.md`` item:
-activation checkpointing (``with_cp``, A11).
+``.meta.json`` sidecar). The backbone's ``with_cp`` reaches the step as
+``make_train_step(remat=...)``, where the JAX loop reads it.
 """
 
 from __future__ import annotations
@@ -177,12 +175,6 @@ class EvalHook(Hook):
              'scores': scores})
 
 
-def _refuse_unported(cfg) -> None:
-    if ((cfg.get('model') or {}).get('backbone') or {}).get('with_cp'):
-        raise NotImplementedError('activation checkpointing (with_cp) is not '
-                                  'ported yet (ROADMAP.md, A11)')
-
-
 class TrainLoop:
     """The JAX ``TrainLoop`` on this rank's card (``device``, CUDA by
     default).
@@ -198,7 +190,6 @@ class TrainLoop:
     def __init__(self, model: torch.nn.Module, dataset, cfg,
                  work_dir: Optional[str] = None, logger=None, seed: int = 0,
                  device: Union[None, str, torch.device] = None):
-        _refuse_unported(cfg)
         self.model = model
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -244,7 +235,9 @@ class TrainLoop:
         self.train_step = make_train_step(model, self.optimizer,
                                           self.lr_schedule, norm_cfg=norm_cfg,
                                           device=self.device, seed=seed,
-                                          local_bn=bool(cfg.get('local_bn')))
+                                          local_bn=bool(cfg.get('local_bn')),
+                                          remat=bool(backbone_cfg.get(
+                                              'with_cp')))
         self.stager = (PinnedStager(self.device)
                        if self.device.type == 'cuda' else None)
         self.hooks: List[Hook] = []

@@ -1,12 +1,15 @@
 """Train and dense-test steps (counterpart of
-``mvfnet_tpu/engine/train_step.py`` without remat).
+``mvfnet_tpu/engine/train_step.py``).
 
 A train step is forward, cross-entropy, backward, the clip by global norm,
 the LR of the step and one SGD update, as the JAX package's jitted step
 computes them; here they are eager PyTorch calls on the device. Over more
 than one process (``parallel.init_distributed``) each rank takes its share
 of the global batch through ``DistributedDataParallel``, with BatchNorm
-over the global batch (the JAX default) or per rank (``local_bn``).
+over the global batch (the JAX default) or per rank (``local_bn``). With
+``remat`` the backbone checkpoints its activations per res-stage
+(``models/backbones/resnet.py``), the JAX step's ``jax.checkpoint``: the
+same losses, gradients, parameters and BatchNorm statistics, less memory.
 """
 
 from __future__ import annotations
@@ -109,7 +112,8 @@ def make_train_step(model: torch.nn.Module,
                     norm_cfg: Optional[Dict[str, Any]] = None,
                     device: Union[None, str, torch.device] = None,
                     seed: Optional[int] = None,
-                    local_bn: bool = False) -> Callable:
+                    local_bn: bool = False,
+                    remat: bool = False) -> Callable:
     """Build ``train_step(imgs, labels, generator=None) -> metrics``.
 
     ``optimizer`` is ``engine.optim.build_optimizer``'s. ``imgs`` is a
@@ -140,11 +144,17 @@ def make_train_step(model: torch.nn.Module,
     running statistics are averaged over the ranks after the step (the JAX
     step stores the mean of the per-shard averages), and each rank draws
     its own mask (the seed folds in the rank). At world 1 neither applies.
+
+    ``remat`` (the config's ``backbone.with_cp``) sets the backbone's
+    ``with_cp``: each res-stage's activations are recomputed in the
+    backward instead of kept, with BatchNorm's running statistics moved
+    once.
     """
     from ..models.common import set_sync_group
     from ..parallel import all_reduce_mean, world_rank
     device = resolve_device(device)
     model.to(device)
+    model.backbone.with_cp = remat
     state = TrainState()
     step_generator = (torch.Generator(device=device) if seed is not None
                       else None)

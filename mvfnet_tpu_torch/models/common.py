@@ -8,10 +8,12 @@ hand kernels both see NHWC bytes.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, Optional
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 # torch BatchNorm defaults; flax's momentum 0.9 weighs the OLD statistics,
 # torch's 0.1 the new ones: the same update
@@ -90,29 +92,68 @@ class BatchNorm(nn.BatchNorm2d):
     """
 
     sync_group = None
+    stats_frozen = False        # see frozen_norm_statistics
 
     def _check_input_dim(self, x):
         if x.dim() < 2:
             raise ValueError(f'expected at least 2-D input, got {x.dim()}-D')
 
     def normalize(self, x: torch.Tensor) -> torch.Tensor:
-        """BatchNorm of ``x``, already in the statistics dtype."""
+        """BatchNorm of ``x``, already in the statistics dtype. Under
+        ``frozen_norm_statistics`` the same calls run on copies of the
+        running statistics, so that a checkpointed forward's recompute
+        saves what its first run saved and updates nothing."""
+        mean, var = self.running_mean, self.running_var
+        frozen = self.training and self.stats_frozen
+        if frozen:
+            mean, var = mean.clone(), var.clone()
         if not (self.training and self.sync_group is not None):
+            if frozen:
+                return F.batch_norm(x, mean, var, self.weight, self.bias,
+                                    True, self.momentum, self.eps)
             return super().forward(x)
-        self.num_batches_tracked.add_(1)
-        return _SyncBatchNorm.apply(
-            x, self.weight, self.bias, self.running_mean, self.running_var,
-            self.eps, self.momentum, self.sync_group)
+        if not frozen:
+            self.num_batches_tracked.add_(1)
+        return _SyncBatchNorm.apply(x, self.weight, self.bias, mean, var,
+                                    self.eps, self.momentum, self.sync_group)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         stat = torch.promote_types(x.dtype, torch.float32)
         return self.normalize(x.to(stat)).to(x.dtype)
 
 
+@contextlib.contextmanager
+def frozen_norm_statistics(module: nn.Module):
+    """Inside: every train-mode ``BatchNorm`` of ``module`` normalizes with
+    its batch statistics (all-reduced across the sync group as usual) and
+    leaves its running statistics and ``num_batches_tracked`` as they are.
+    The recompute context of ``torch.utils.checkpoint``: ``jax.checkpoint``
+    recomputes values, never state updates."""
+    norms = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    for m in norms:
+        m.stats_frozen = True
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.stats_frozen = False
+
+
+class GroupNorm(nn.GroupNorm):
+    """torch GroupNorm whose statistics and affine run in at least fp32,
+    cast back to the input's dtype, like ``BatchNorm`` (flax's
+    ``GroupNorm`` with ``param_dtype=float32``). No running statistics: it
+    normalizes the same way in train and eval."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        stat = torch.promote_types(x.dtype, torch.float32)
+        return super().forward(x.to(stat)).to(x.dtype)
+
+
 def set_sync_group(model: nn.Module, group) -> int:
     """Set (a process group) or clear (None) the statistics group of every
     ``BatchNorm`` of ``model``, the MVF modules' included; returns how
-    many."""
+    many. GroupNorm keeps no batch statistics and is not touched."""
     norms = [m for m in model.modules() if isinstance(m, BatchNorm)]
     for m in norms:
         m.sync_group = group
@@ -121,18 +162,21 @@ def set_sync_group(model: nn.Module, group) -> int:
 
 def make_norm(norm_cfg: Optional[Dict[str, Any]], num_features: int
               ) -> nn.Module:
-    """Build a norm layer from a ``dict(type='BN'|'SyncBN'|'BN3d', ...)``
-    node. ``requires_grad`` is a training concern and is ignored here, and
-    so is 'SyncBN': the train step syncs every BatchNorm across ranks unless
-    the config asks for per-rank statistics (``local_bn``), as the JAX
-    package does."""
+    """Build a norm layer from a ``dict(type='BN'|'SyncBN'|'BN3d'|'GN',
+    ...)`` node. ``requires_grad`` is a training concern and is ignored
+    here, and so is 'SyncBN': the train step syncs every BatchNorm across
+    ranks unless the config asks for per-rank statistics (``local_bn``), as
+    the JAX package does. 'GN' takes ``num_groups`` and the BatchNorm eps."""
     cfg = dict(norm_cfg or {'type': 'BN'})
     norm_type = cfg.pop('type', 'BN')
     cfg.pop('requires_grad', None)
     if norm_type in ('BN', 'BN3d', 'SyncBN'):
         return BatchNorm(num_features, eps=BN_EPS, momentum=BN_MOMENTUM,
                          **cfg)
-    raise NotImplementedError(f'norm type {norm_type} is not ported yet')
+    if norm_type == 'GN':
+        return GroupNorm(cfg.pop('num_groups'), num_features, eps=BN_EPS,
+                         **cfg)
+    raise KeyError(f'Unrecognized norm type {norm_type}')
 
 
 class Conv2d(nn.Conv2d):
@@ -155,6 +199,19 @@ def max_pool_same_as_torch(window: int = 3, stride: int = 2,
                            padding: int = 1) -> nn.MaxPool2d:
     """``MaxPool2d(window, stride, padding)``: padding never wins the max."""
     return nn.MaxPool2d(window, stride, padding)
+
+
+def avg_pool_torch(x: torch.Tensor, window: int, stride: int,
+                   padding: int = 0, count_include_pad: bool = True,
+                   ceil_mode: bool = False) -> torch.Tensor:
+    """``AvgPool2d(window, stride, padding, ceil_mode, count_include_pad)``
+    on NCHW x, in its dtype. The two configurations the reference uses: the
+    avd layer's ``AvgPool2d(3, s, padding=1)`` and avg_down's
+    ``AvgPool2d(s, s, ceil_mode=True, count_include_pad=False)``. On a map
+    smaller than the window the ceil-mode pool gives one value, as torch
+    does; the JAX package's ``avg_pool_torch`` gives an empty map."""
+    return F.avg_pool2d(x, window, stride, padding, ceil_mode=ceil_mode,
+                        count_include_pad=count_include_pad)
 
 
 def to_nhwc(x: torch.Tensor) -> torch.Tensor:

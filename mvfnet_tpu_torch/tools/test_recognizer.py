@@ -95,7 +95,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
 
 def _test(args, device) -> Dict[str, Any]:
     from ..config import Config
-    from ..data import build_dataset, device_norm_cfg
+    from ..data import build_dataset, dataset_decoder, device_norm_cfg
     from ..engine.eval import evaluate_dataset
     from ..parallel import is_main_process
     from ..utils.logging import get_root_logger
@@ -108,7 +108,8 @@ def _test(args, device) -> Dict[str, Any]:
     load_checkpoint(model, args.checkpoint, logger)
 
     dataset = build_dataset(dict(cfg.data['test']))
-    logger.info('test dataset: %d videos', len(dataset))
+    logger.info('test dataset: %d videos, decoder %s', len(dataset),
+                dataset_decoder(dataset))
     scores = evaluate_dataset(
         model, dataset, videos_per_gpu=args.videos_per_gpu,
         workers_per_gpu=cfg.data.get('workers_per_gpu', 4), progress=True,

@@ -120,7 +120,7 @@ def main(argv: Optional[Sequence[str]] = None):
 
 def _train(args, device):
     from ..config import Config
-    from ..data import build_dataset
+    from ..data import build_dataset, dataset_decoder
     from ..engine.train_loop import train_network
     from ..models import build_recognizer
     from ..parallel import get_dist_info
@@ -156,8 +156,9 @@ def _train(args, device):
         dataset = build_dataset(dict(cfg.data['train']))
         if args.seed is not None and hasattr(dataset, 'seed'):
             dataset.seed = args.seed
-        logger.info('dataset: %d videos, compute dtype %s, device %s',
-                    len(dataset), dtype, device)
+        logger.info('dataset: %d videos, decoder %s, compute dtype %s, '
+                    'device %s', len(dataset), dataset_decoder(dataset),
+                    dtype, device)
         extra_hooks = ([_profile_hook(args.profile,
                                       os.path.join(cfg.work_dir, 'profile'),
                                       logger)]

@@ -137,6 +137,20 @@ def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
 
 _HEAD_ALIASES = ('new_fc', 'new_cls', 'fc_cls')
 _BLOCK_CONV1 = re.compile(r'(backbone\.layer\d+\.\d+\.conv1)(\.net)?\.weight$')
+_AVG_DOWN_CONV = re.compile(r'\.downsample\.1\.weight$')
+
+
+def _shortcut_name(key: str, value) -> str:
+    """The reference's avg_down shortcut ``Sequential(pool, conv, norm)``
+    names its conv ``downsample.1`` and its norm ``downsample.2``; the
+    port's (``resnet.Downsample``) names them ``downsample.0`` and
+    ``downsample.1``, as the plain shortcut does. A 4-D
+    ``downsample.1.weight`` is such a conv."""
+    if '.downsample.2.' in key:
+        return key.replace('.downsample.2.', '.downsample.1.')
+    if _AVG_DOWN_CONV.search(key) and getattr(value, 'ndim', 0) == 4:
+        return key.replace('.downsample.1.', '.downsample.0.')
+    return key
 
 
 def _port_name(key: str, targets) -> Optional[str]:
@@ -172,12 +186,15 @@ def import_torch_state_dict(model: torch.nn.Module,
     mismatched}`` in port names (``unexpected`` keeps the source's keys).
 
     The key rules of the JAX package's ``import_torch_weights``
-    (``mvfnet_tpu/utils/checkpoint.py:165-492``) for the 2-D Bottleneck
-    ResNet, MVF and the TSN head: ``module.`` prefixes are stripped,
+    (``mvfnet_tpu/utils/checkpoint.py:165-492``) for the 2-D ResNet (its
+    options included), MVF and the TSN head: ``module.`` prefixes are stripped,
     ``num_batches_tracked`` and torchvision's ``fc.*`` are skipped,
     ``cls_head.{new_fc,new_cls,fc_cls}.*`` load into ``cls_head.new_fc``, a
     key without ``backbone.`` loads into the backbone, and a block's
-    ``conv1.weight`` and ``conv1.net.weight`` stand for each other. A key of
+    ``conv1.weight`` and ``conv1.net.weight`` stand for each other. The
+    reference's avg_down shortcut (pool, conv, norm at indices 0-2) loads
+    into the port's (conv, norm at 0-1); the JAX importer takes its conv
+    for the norm and reports it mismatched (ROADMAP.md, section C). A key of
     the wrong size is skipped and reported as mismatched and, as in the JAX
     importer, also as unexpected; a key the model lacks is unexpected; a
     model entry no key reached keeps its value and is reported missing.
@@ -196,7 +213,7 @@ def import_torch_state_dict(model: torch.nn.Module,
         key = _strip_module(key)
         if key.endswith('num_batches_tracked'):
             continue
-        name = _port_name(key, targets)
+        name = _port_name(_shortcut_name(key, value), targets)
         if name is None:
             continue
         if name not in targets or name.endswith('num_batches_tracked'):

@@ -26,12 +26,16 @@ pytestmark = pytest.mark.cuda
 # (N, H, W, Cin), Cm: the JAX suite's shapes (general kernel), shapes
 # that take the tiled bf16 kernel at the edges of its strip walk: H and W
 # not multiples of its tile, H not a multiple of the strip or the step
-# (a ragged last step), H = 1, and H below the step with W ragged; and the
-# two shapes of the train loop's evaluation (8 frames at 224^2)
+# (a ragged last step), H = 1, and H below the step with W ragged; the
+# two shapes of the train loop's evaluation (8 frames at 224^2); and the
+# 4x16 video recipe's: its dense test (3 crops x 10 clips x 4 frames at
+# 256^2) and its train CLI's evaluation (4 frames at 224^2)
 SHAPES = [((2, 8, 8, 32), 16), ((1, 6, 10, 24), 8), ((3, 13, 11, 128), 64),
           ((160, 37, 20, 128), 64), ((1, 1, 64, 256), 64),
           ((2, 3, 9, 192), 128), ((8, 56, 56, 256), 64),
-          ((8, 28, 28, 512), 128)]
+          ((8, 28, 28, 512), 128), ((120, 64, 64, 256), 64),
+          ((120, 32, 32, 512), 128), ((4, 56, 56, 256), 64),
+          ((4, 28, 28, 512), 128)]
 
 
 @pytest.fixture
@@ -128,6 +132,47 @@ def test_train_steps_launch_no_fused_kernel_and_eval_does(cuda):
     assert bool(torch.isfinite(scores).all())
     # layer1.1-2 and layer2.1-3
     assert fb.bottleneck_eval_cuda.launches == before + 5
+
+
+@pytest.mark.parametrize('option', ['gn', 'avd'])
+def test_gn_and_avd_blocks_do_not_launch_the_kernel(cuda, option):
+    """bf16 eval of two-stage R50s on the card: GroupNorm blocks take the
+    plain path (no running statistics to fold), so the GN model launches
+    nothing; the avd block (layer2.0, stride 2) is not fused either, so the
+    avd model launches at layer1.1-2 and layer2.1-3 alone, as the plain
+    model does. Scores finite and within 3e-2 of max|logit| of the plain
+    path."""
+    backbone = dict(type='ResNet', depth=50, num_stages=2, out_indices=(1,),
+                    norm_eval=False)
+    if option == 'gn':
+        backbone['norm_cfg'] = dict(type='GN', num_groups=8)
+    else:
+        backbone.update(avd=True, avg_down=True)
+    model = build_recognizer(dict(
+        type='Recognizer2D', backbone=backbone,
+        cls_head=dict(type='TSNClsHead', spatial_type='avg',
+                      dropout_ratio=0.5, in_channels=512, init_std=0.01,
+                      num_classes=10), dtype='bfloat16'),
+        test_cfg=dict(average_clips=None))
+    model.init_weights(torch.Generator().manual_seed(0), randomize_bn=True)
+    step = make_eval_step(model)
+    x = np.random.RandomState(0).randn(1, 4, 64, 64, 3).astype(np.float32)
+    fb.bottleneck_eval_cuda.launches_by_shape.clear()
+    got = step(model, x).float()
+    torch.cuda.synchronize()
+    launches = dict(fb.bottleneck_eval_cuda.launches_by_shape)
+    fb.FORCE = 'plain'
+    try:
+        want = step(model, x).float()
+    finally:
+        fb.FORCE = None
+    assert bool(torch.isfinite(got).all())
+    assert (got - want).abs().max().item() <= 3e-2 * want.abs().max().item()
+    if option == 'gn':
+        assert launches == {}
+    else:
+        assert launches == {('bfloat16', 4, 16, 16, 256, 64): 2,
+                            ('bfloat16', 4, 8, 8, 512, 128): 3}
 
 
 def test_train_loop_epoch_in_bf16_evaluates_through_the_kernel(cuda,

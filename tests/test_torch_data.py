@@ -85,10 +85,22 @@ def test_sample_frames_match_jax(total, sth_samples, test_mode):
                 assert_same(outs[1], outs[0])
 
 
-def test_sample_frames_without_total_frames_raises():
-    with pytest.raises(NotImplementedError, match='VideoDataset'):
-        pdata.PIPELINES.get('SampleFrames')(clip_len=2)(
-            dict(filename='a.mp4', test_mode=True))
+def test_sample_frames_without_total_frames_raises(tmp_path):
+    """Without ``total_frames`` the container is probed; a file that is no
+    container makes the probe raise ``IOError`` and the op return None, so
+    that ``VideoDataset`` draws another video, as in the JAX package."""
+    from mvfnet_tpu.data import video_io as jax_video_io
+    from mvfnet_tpu_torch.data import video_io
+    bad = str(tmp_path / 'a.mp4')
+    with open(bad, 'wb') as f:
+        f.write(b'not a container')
+    for probe in (video_io.probe_num_frames,
+                  jax_video_io.probe_num_frames):
+        with pytest.raises(IOError, match='frame count'):
+            probe(bad)
+    for reg in (pdata.PIPELINES, jdata.PIPELINES):
+        assert reg.get('SampleFrames')(clip_len=2)(
+            dict(filename=bad, test_mode=True)) is None
 
 
 # -------------------------------------------------------------- transforms
@@ -161,7 +173,10 @@ TRANSFORM_CASES = [
     ('Transpose', dict(keys=['img'], order=(2, 0, 1)),
      dict(img=frames(1)[0])),
 ]
-LOADERS = {'SampleFrames', 'FrameSelector', 'PklLoader'}
+# the frame and video loaders, held against JAX on files here and in
+# tests/test_torch_video.py
+LOADERS = {'SampleFrames', 'FrameSelector', 'PklLoader', 'PyAVDecode',
+           'DecordDecode', 'OpenCVDecode', 'PIMSDecode'}
 
 
 def test_every_transform_has_a_case():

@@ -1,7 +1,8 @@
-"""The port stands alone: no JAX, flax, msgpack or mvfnet_tpu import
-anywhere in mvfnet_tpu_torch/ or chip_smoke.py (the port carries its own
-msgpack codec), importing it loads neither JAX nor msgpack nor triton nor
-a kernel, and its entry points run on CUDA unless told not to."""
+"""The port stands alone: no JAX, flax, msgpack, mvfnet_tpu, PyAV, decord
+or triton import anywhere in mvfnet_tpu_torch/ or chip_smoke.py (the port
+carries its own msgpack codec and decodes video with cv2), importing it
+loads none of them nor a kernel, and its entry points run on CUDA unless
+told not to."""
 
 import ast
 import os
@@ -13,7 +14,8 @@ import torch
 
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), '..'))
 PORT = os.path.join(REPO, 'mvfnet_tpu_torch')
-FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'mvfnet_tpu')
+FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'mvfnet_tpu', 'av',
+             'decord', 'triton')
 
 
 def _port_files():
@@ -38,7 +40,7 @@ def test_port_sources_import_no_jax_package():
     assert len(files) > 15
     names = {os.path.relpath(f, PORT) for f in files}
     assert {'parallel/__init__.py', 'parallel/dist.py',
-            'parallel/launch.py'} <= names
+            'parallel/launch.py', 'data/video_io.py'} <= names
     bad = [(os.path.relpath(f, REPO), root) for f in files
            for root in _imported_roots(f) if root in FORBIDDEN]
     assert bad == []
@@ -61,9 +63,12 @@ def test_import_loads_no_jax_triton_or_kernel():
         'import mvfnet_tpu_torch.utils.msgpack_codec\n'
         'import mvfnet_tpu_torch.parallel, mvfnet_tpu_torch.parallel.dist\n'
         'import mvfnet_tpu_torch.parallel.launch\n'
+        'import mvfnet_tpu_torch.data.video_io\n'
+        'import mvfnet_tpu_torch.models.backbones.resnet\n'
         'from mvfnet_tpu_torch.ops import _cuda\n'
         'mods = [m for m in sys.modules if m.split(".")[0] in '
-        '("jax", "flax", "msgpack", "triton") or m == "mvfnet_tpu" '
+        '("jax", "flax", "msgpack", "triton", "av", "decord") '
+        'or m == "mvfnet_tpu" '
         'or m.startswith("mvfnet_tpu.")]\n'
         'assert not mods, mods\n'
         'assert not _cuda._libs\n'

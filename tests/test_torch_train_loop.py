@@ -3,8 +3,10 @@ the non-strict weight importer.
 
 The data are the JAX engine tests' (``tests/test_engine.py``): 4 rawframe
 videos of 8 JPEGs of 48x48, 2 classes, ``RandomResizedCrop`` 32, two videos
-a batch, so 2 iterations an epoch. The model is R50 + MVF at T=2 (the port
-has no ``BasicBlock``).
+a batch, so 2 iterations an epoch. The model is R18 + MVF at T=2, as the
+JAX engine tests build it: the loop's semantics do not depend on the
+depth. The importer cases build R50 + MVF, the vocabulary of the released
+and torchvision checkpoints.
 
 - The port's ``train_network(validate=True)`` against the JAX package's on
   one device, 2 epochs with the recipe (SGD nesterov, wd 1e-4, clip at 40,
@@ -76,14 +78,15 @@ LOG_LINE = re.compile(
     r'loss_cls: \d+\.\d{4}, loss: \d+\.\d{4}, grad_norm: \d+\.\d{4}$', re.M)
 
 
-def model_cfg(dropout=0.0, modality='RGB', pretrained=None):
+def model_cfg(dropout=0.0, modality='RGB', pretrained=None, depth=18):
     return dict(
         type='Recognizer2D', modality=modality,
-        backbone=dict(type='ResNet', depth=50, out_indices=(3,),
+        backbone=dict(type='ResNet', depth=depth, out_indices=(3,),
                       norm_eval=False, pretrained=pretrained,
                       norm_cfg=dict(type='BN', requires_grad=True)),
         cls_head=dict(type='TSNClsHead', spatial_size=-1, spatial_type='avg',
-                      dropout_ratio=dropout, in_channels=2048, init_std=0.01,
+                      dropout_ratio=dropout,
+                      in_channels=512 if depth < 50 else 2048, init_std=0.01,
                       num_classes=NUM_CLASSES),
         module_cfg=dict(type='MVF', n_segment=T, alpha=0.125,
                         mvf_freq=(0, 0, 1, 1), mode='THW'))
@@ -105,11 +108,12 @@ def dataset_cfg(root, ann, test_mode):
         ])
 
 
-def config_text(root, ann, work_dir, dropout=0.0, pretrained=None):
+def config_text(root, ann, work_dir, dropout=0.0, pretrained=None,
+                depth=18):
     """A config file for both packages: the recipe at the tiny geometry."""
     val = dataset_cfg(root, ann, True)
     return '\n'.join([
-        f'model = {model_cfg(dropout, pretrained=pretrained)!r}',
+        f'model = {model_cfg(dropout, pretrained=pretrained, depth=depth)!r}',
         "test_cfg = dict(average_clips='prob')",
         f'data = dict(videos_per_gpu=2, workers_per_gpu=2, '
         f'train={dataset_cfg(root, ann, False)!r}, val={val!r}, '
@@ -323,10 +327,11 @@ def test_dropout_masks_follow_the_step():
     assert not torch.equal(*masks)
 
 
-def jax_template(modality='RGB'):
+def jax_template(modality='RGB', depth=18):
     """The JAX recognizer's variables, shaped by ``eval_shape`` and filled
     with seeded numbers."""
-    jmodel = jax_build(dict(model_cfg(modality=modality), dtype=None))
+    jmodel = jax_build(dict(model_cfg(modality=modality, depth=depth),
+                            dtype=None))
     c = 10 if modality == 'Flow' else 3
     shapes = jax.eval_shape(
         lambda: jmodel.init(jax.random.PRNGKey(0),
@@ -389,7 +394,7 @@ def _torchvision_r50(seed):
 
 
 def _source(case):
-    port = build_recognizer(dict(model_cfg(), dtype=None))
+    port = build_recognizer(dict(model_cfg(depth=50), dtype=None))
     shapes = {k: tuple(v.shape) for k, v in port.state_dict().items()}
     if case == 'reference_module_prefix':
         sd = _random_like(shapes, 1)
@@ -420,13 +425,14 @@ def test_importer_matches_jax(case, tmp_path):
     inflate = 10 if flow else None
     path = str(tmp_path / 'source.pth')
     torch.save({'state_dict': _source(case)}, path)
-    variables = jax_template('Flow' if flow else 'RGB')
+    variables = jax_template('Flow' if flow else 'RGB', depth=50)
     back, want = import_torch_weights(jax_load_torch_state_dict(path),
                                       variables, inflate_in_channels=inflate,
                                       return_report=True)
 
     port = build_recognizer(dict(model_cfg(modality='Flow' if flow
-                                           else 'RGB'), dtype=None))
+                                           else 'RGB', depth=50),
+                                 dtype=None))
     port.load_state_dict(state_dict_from_jax(variables), strict=True)
     got = import_torch_state_dict(port, load_torch_state_dict(path),
                                   inflate_in_channels=inflate)
@@ -473,7 +479,7 @@ def test_pretrained_torchvision_backbone_loads_in_the_loop(tiny_data,
     sd = _torchvision_r50(11)
     torch.save(sd, pretrained)
     cfg = Config.fromfile(write_config(tmp_path, tiny_data,
-                                       pretrained=str(pretrained)))
+                                       pretrained=str(pretrained), depth=50))
     model = build_recognizer(dict(cfg.model), test_cfg=cfg.test_cfg)
     TrainLoop(model, build_dataset(dict(cfg.data['train'])), cfg,
               device='cpu')
@@ -551,14 +557,15 @@ def test_train_cli_refuses_what_is_not_ported(tiny_data, tmp_path,
     with pytest.raises(NotImplementedError, match='A14'):
         train_cli.main([config, '--device', 'cpu', '--resume_from',
                         calibrated])
-    for key, value, item in (('model', dict(cfg.model, backbone=dict(
-                                 cfg.model['backbone'], with_cp=True)),
-                              'A11'),):
-        bad = Config.fromfile(config)
-        setattr(bad, key, value)
-        with pytest.raises(NotImplementedError, match=item):
-            TrainLoop(model, build_dataset(dict(cfg.data['train'])), bad,
-                      device='cpu')
+    # with_cp is ported: the loop hands it to the step as remat, and the
+    # backbone checkpoints its stages
+    cp = Config.fromfile(config)
+    cp.model = dict(cfg.model, backbone=dict(cfg.model['backbone'],
+                                             with_cp=True))
+    loop = TrainLoop(model, build_dataset(dict(cfg.data['train'])), cp,
+                     device='cpu')
+    assert model.backbone.with_cp is True
+    del loop
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match='CUDA is not available'):
             train_cli.main([config])
