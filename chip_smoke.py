@@ -106,10 +106,27 @@ Phases, each of which exits non-zero on failure:
    fused launches expected, and one finite bf16 train step
    (``video_data:``, ``with_cp:`` and ``options:`` lines).
 
+10. the 3-D families, on phase 5's frames: (a) for each shipped 3-D config
+   (I3D-R50 32x2, SlowFast-R50 packed and unpacked, X3D), unchanged but
+   for its test split, seeded random weights as a ``.pth`` and the test
+   CLI (10 clips x 3 crops of 256^2, bf16) over 2 videos as a warm-up, a
+   timed and a profiled pass: scores, printed accuracies against numpy,
+   videos/s, device ms a video and idle share, no fused launch, one view
+   of one video on the card within 3e-2 of max|logit| of the fp32 CPU
+   forward, and the packed and unpacked SlowFast scores equal; (b) each
+   family's train step at its config's batch (I3D 8 x 32, SlowFast 8 x
+   64, X3D 16 x 16, 224^2): finite losses, median ms, peak GiB, and the
+   I3D step with ``with_cp`` (the same loss, less peak memory); (c) the
+   train CLI on the I3D config for 2 epochs of 2 iterations with
+   evaluations and checkpoints, and a run resumed from epoch 1; (d) the
+   feature CLI on the SlowFast config, rows of 2048 + 256 (``video3d:``,
+   ``train3d:``, ``with_cp3d:``, ``train_cli3d:``, ``features3d:``
+   lines).
+
 Prints the ``{"kernels": [...]}`` line (launches of the fused kernel per
 shape in phases 3, 5, 6 and 7, per rank in phase 8's cases as
-``launches_dist``, and per case in phase 9 as ``launches_video``), the
-card's name and power limit,
+``launches_dist``, per case in phase 9 as ``launches_video`` and in phase
+10 as ``launches_3d``), the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Without CUDA, or without the
 repository beside it, it exits non-zero and prints no result.
 """
@@ -197,6 +214,21 @@ VIDEO_CONFIG = os.path.join(ROOT, 'configs', 'mvf', 'k400',
                             'mvf_kinetics400_video_r50_4x16_dense.py')
 VIDEO_FPS = 30
 VIDEO_DECODE_DIFF = 0
+# phase 10: the shipped 3-D configs, unchanged but for their data splits;
+# the dense test scores DENSE3D_VIDEOS of phase 5's videos (300 frames hold
+# each config's clip: I3D 32 x 2, SlowFast 64 x 1, X3D 16 x 5); the train
+# step takes each family's configured batch, TRAIN3D_STEPS timed steps
+# after one warm-up
+CONFIGS_3D = {
+    'i3d': os.path.join(ROOT, 'configs', 'i3d', 'i3d_r50_32x2_k400.py'),
+    'slowfast': os.path.join(ROOT, 'configs', 'slowfast',
+                             'slowfast_r50_k400.py'),
+    'slowfast_unpacked': os.path.join(ROOT, 'configs', 'slowfast',
+                                      'slowfast_r50_k400_unpacked.py'),
+    'x3d': os.path.join(ROOT, 'configs', 'x3d', 'x3d_k400.py'),
+}
+DENSE3D_VIDEOS = 2
+TRAIN3D_STEPS = 3
 KERNEL = dict(name='fused_bottleneck', route='cuda',
               source='mvfnet_tpu_torch/csrc/fused_bottleneck.cu',
               replaces='mvfnet_tpu/ops/fused_block.py:144')
@@ -2169,10 +2201,420 @@ def phase_video(root):
     return launches
 
 
+def write_config_3d(root, name, base, data, extra=()):
+    """A config that inherits the shipped 3-D config ``base`` unchanged but
+    for the data splits in ``data`` and ``extra`` lines; its path."""
+    import re
+    text = re.sub(r'\binf\b', "float('inf')", '\n'.join(
+        [f'_base_ = {base!r}', f'data = dict(**{data!r})'] + list(extra)
+        + ['']))
+    path = os.path.join(root, f'{name}.py')
+    with open(path, 'w') as f:
+        f.write(text)
+    return path
+
+
+def _fused_total():
+    from mvfnet_tpu_torch.ops import fused_block as fb
+    return fb.bottleneck_eval_cuda.launches
+
+
+def _random_3d_checkpoint(root, name):
+    """The config's recognizer with seeded random weights (BN statistics
+    drawn too), saved as ``.pth``; its path."""
+    import torch
+    from mvfnet_tpu_torch.config import Config
+    from mvfnet_tpu_torch.models import build_recognizer
+    cfg = Config.fromfile(CONFIGS_3D[name])
+    model = build_recognizer(dict(cfg.model, dtype=cfg.compute_dtype))
+    model.init_weights(torch.Generator().manual_seed(0), randomize_bn=True)
+    path = os.path.join(root, f'{name}_random.pth')
+    torch.save(model.state_dict(), path)
+    return path
+
+
+def _one_view_against_cpu(name, config, ckpt):
+    """One view of one video through the card in the config's compute dtype
+    against the same weights' fp32 forward on the CPU; the error, the
+    tolerance (3e-2 of the CPU's largest logit) and the CPU's argmax."""
+    import numpy as np
+    import torch
+    from mvfnet_tpu_torch.config import Config
+    from mvfnet_tpu_torch.data import build_dataset, device_norm_cfg
+    from mvfnet_tpu_torch.engine.train_step import make_eval_step
+    from mvfnet_tpu_torch.models import build_recognizer
+    from mvfnet_tpu_torch.tools import test_recognizer as cli
+    from mvfnet_tpu_torch.utils.checkpoint import load_weights
+    cfg = Config.fromfile(config)
+    norm = device_norm_cfg(cfg.data['test']['pipeline'])
+    view = np.asarray(build_dataset(dict(cfg.data['test']))[0][
+        'img_group'])[None, :1]
+    model = cli.build_model(cfg, False, None)
+    load_weights(model, ckpt)
+    got = make_eval_step(model, norm_cfg=norm)(model, view).float().cpu()
+    cpu = build_recognizer(dict(cfg.model, dtype='float32'),
+                           test_cfg=dict(average_clips=None))
+    cpu.load_state_dict(model.state_dict())
+    want = make_eval_step(cpu, norm_cfg=norm, device='cpu')(cpu, view)
+    err = float((got - want).abs().max())
+    tol = 3e-2 * float(want.abs().max())
+    require(bool(torch.isfinite(got).all()) and err <= tol,
+            f'{name}: card vs fp32 CPU logits of one view {err} > {tol}')
+    del model, cpu
+    torch.cuda.empty_cache()
+    return dict(view_shape=list(view.shape), max_abs_err=err, tol=tol,
+                argmax_agree=bool((got.argmax(-1) == want.argmax(-1)).all()))
+
+
+def _dense_3d(root):
+    """(a) the test CLI on each shipped 3-D config: a warm-up, a timed and
+    a profiled pass over DENSE3D_VIDEOS of phase 5's videos; returns the
+    fused launches of each timed pass and each config's scores."""
+    import pickle
+    import re
+
+    import numpy as np
+    import torch
+    from mvfnet_tpu_torch.config import Config
+    from mvfnet_tpu_torch.data import build_dataset
+    from mvfnet_tpu_torch.tools import test_recognizer as cli
+    ann = os.path.join(root, 'test_list_3d.txt')
+    with open(ann, 'w') as f:
+        f.writelines(f'video_{i} {DATA_FRAMES} {i}\n'
+                     for i in range(DENSE3D_VIDEOS))
+    ckpts = {name: _random_3d_checkpoint(root, name)
+             for name in ('i3d', 'slowfast', 'x3d')}
+    ckpts['slowfast_unpacked'] = ckpts['slowfast']
+    launches, scores = {}, {}
+    for name, base in CONFIGS_3D.items():
+        config = write_config_3d(root, f'test3d_{name}', base, dict(
+            test=dict(ann_file=ann, data_root=root)))
+        cfg = Config.fromfile(config)
+        sample = [op for op in cfg.data['test']['pipeline']
+                  if op['type'] == 'SampleFrames'][0]
+        views = sample['num_clips'] * 3
+        out = os.path.join(root, f'scores3d_{name}.pkl')
+        args = [config, ckpts[name], '--out', out]
+        _quiet(cli.main, args)                              # warm-up pass
+        torch.cuda.synchronize()
+        before = _fused_total()
+        t0 = time.perf_counter()
+        _, text = _quiet(cli.main, args)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches[name] = _fused_total() - before
+        with open(out, 'rb') as f:
+            rows = np.stack(pickle.load(f))
+        scores[name] = rows
+        require(rows.shape == (DENSE3D_VIDEOS, 400)
+                and bool(np.isfinite(rows).all())
+                and bool((np.abs(rows.sum(1) - 1) <= 1e-3).all()),
+                f'{name}: scores {rows.shape}, sums {rows.sum(1)}')
+        printed = dict(re.findall(r'^(Top-1|Top-5|Mean Class) Accuracy '
+                                  r'= (\d+\.\d\d)$', text, re.M))
+        want = numpy_accuracy(rows, list(range(DENSE3D_VIDEOS)))
+        require(printed == {k: f'{v * 100:.02f}' for k, v in zip(
+            ('Top-1', 'Top-5', 'Mean Class'), want)},
+            f'{name}: printed {printed}, numpy {want}')
+        require(launches[name] == 0,
+                f'{name}: the fused 2-D kernel launched {launches[name]} '
+                f'times on a 3-D path')
+        prof = device_profile(lambda: _quiet(cli.main, args))
+        require('busy_ms' in prof, f'{name} profile: {prof}')
+        one = _one_view_against_cpu(name, config, ckpts[name])
+        clip = list(build_dataset(dict(cfg.data['test']))[0][
+            'img_group'].shape)
+        print('video3d: ' + json.dumps(dict(
+            case=name, recognizer=cfg.model['type'],
+            backbone=cfg.model['backbone']['type'],
+            dtype=cfg.compute_dtype, videos=DENSE3D_VIDEOS,
+            views_per_video=views, video=clip, pass_s=secs,
+            videos_per_s=DENSE3D_VIDEOS / secs,
+            clips_per_s=DENSE3D_VIDEOS * views / secs,
+            device_ms_per_video=prof['busy_ms'] / DENSE3D_VIDEOS,
+            device_idle_share=prof['idle_share'],
+            profiled_pass_ms=prof['wall_ms'], fused_launches=launches[name],
+            one_view_vs_cpu_fp32=one, card=card_line())))
+        print(f'video3d profile {name}: ' + json.dumps(prof))
+    diff = float(np.abs(scores['slowfast']
+                        - scores['slowfast_unpacked']).max())
+    print(f'video3d: packed vs unpacked SlowFast scores max abs diff {diff}')
+    require(diff == 0, f'packed and unpacked SlowFast scores differ by '
+                       f'{diff}')
+    return launches, ckpts
+
+
+def _train_shape_3d(cfg):
+    """The config's train batch shape: videos_per_gpu clips of its train
+    pipeline's clip length at its crop."""
+    ops = {op['type']: op for op in cfg.data['train']['pipeline']}
+    crop = [op for t, op in ops.items() if t.startswith('Random')
+            and 'input_size' in op][0]['input_size']
+    return (cfg.data['videos_per_gpu'], 1, ops['SampleFrames']['clip_len'],
+            crop, crop, 3)
+
+
+def _train_batch_3d(cfg, seed):
+    """A uint8 batch of the config's train shape, and labels."""
+    import numpy as np
+    shape = _train_shape_3d(cfg)
+    rs = np.random.RandomState(seed)
+    return (rs.randint(0, 256, shape, dtype=np.uint8),
+            rs.randint(0, 400, shape[0]))
+
+
+def _train_state_3d(cfg, remat=False, model=None):
+    """The config's recognizer (seeded unless given) and its recipe's
+    train step on the card."""
+    import torch
+    from mvfnet_tpu_torch.engine.optim import (build_lr_schedule,
+                                               build_optimizer,
+                                               frozen_prefixes_from_backbone)
+    from mvfnet_tpu_torch.engine.train_step import make_train_step
+    from mvfnet_tpu_torch.models import build_recognizer
+    if model is None:
+        model = build_recognizer(dict(cfg.model, dtype=cfg.compute_dtype),
+                                 test_cfg=dict(cfg.test_cfg))
+        model.init_weights(torch.Generator().manual_seed(0),
+                           randomize_bn=True)
+    schedule = build_lr_schedule(cfg.lr_config, cfg.optimizer['lr'],
+                                 ITERS_PER_EPOCH, cfg.total_epochs)
+    opt = build_optimizer(model, cfg.optimizer, schedule,
+                          grad_clip=cfg.optimizer_config['grad_clip'],
+                          frozen_prefixes=frozen_prefixes_from_backbone(
+                              cfg.model['backbone']))
+    step = make_train_step(model, opt, schedule,
+                           norm_cfg=dict(cfg.img_norm_cfg, device=True),
+                           remat=remat)
+    return model, step
+
+
+def _train_steps_3d():
+    """(b) each family's train step at its config's batch: a warm-up and
+    TRAIN3D_STEPS timed steps (finite, their median time, peak memory),
+    and the I3D step with and without ``with_cp`` from one state; returns
+    the fused launches per family."""
+    import copy
+    import math
+
+    import torch
+    from mvfnet_tpu_torch.config import Config
+    launches = {}
+    for family in ('i3d', 'slowfast', 'x3d'):
+        cfg = Config.fromfile(CONFIGS_3D[family])
+        model, step = _train_state_3d(cfg)
+        batches = [_train_batch_3d(cfg, s) for s in range(TRAIN3D_STEPS + 1)]
+        before = _fused_total()
+        gen = torch.Generator(device='cuda')
+        losses = [step(*batches[0], gen.manual_seed(0))['loss'].item()]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        secs = []
+        for i, batch in enumerate(batches[1:]):
+            t0 = time.perf_counter()
+            m = step(*batch, gen.manual_seed(i + 1))
+            losses.append(m['loss'].item())
+            secs.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        launches[family] = _fused_total() - before
+        require(all(math.isfinite(v) for v in losses),
+                f'{family}: train losses {losses}')
+        require(launches[family] == 0,
+                f'{family}: the fused kernel launched in the train steps')
+        print('train3d: ' + json.dumps(dict(
+            case=family, backbone=cfg.model['backbone']['type'],
+            batch=list(batches[0][0].shape), dtype=cfg.compute_dtype,
+            loss=losses, step_ms=[s * 1e3 for s in secs],
+            median_step_ms=statistics.median(secs) * 1e3,
+            clips_per_s=batches[0][0].shape[0] / statistics.median(secs),
+            max_memory_allocated_gib=peak, card=card_line())))
+        if family == 'i3d':
+            base = copy.deepcopy(model).cpu()
+        del model, step
+        torch.cuda.empty_cache()
+
+    cfg = Config.fromfile(CONFIGS_3D['i3d'])
+    batch = _train_batch_3d(cfg, 0)
+    runs = {}
+    for remat in (False, True):
+        model, step = _train_state_3d(cfg, remat, copy.deepcopy(base))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        m = step(*batch, torch.Generator(device='cuda').manual_seed(1))
+        loss = m['loss'].item()
+        runs[remat] = dict(loss=loss, grad_norm=m['grad_norm'].item(),
+                           ms=(time.perf_counter() - t0) * 1e3,
+                           peak=torch.cuda.max_memory_allocated() / 2 ** 30)
+        del model, step, m
+        torch.cuda.empty_cache()
+    off, on = runs[False], runs[True]
+    print('with_cp3d: ' + json.dumps(dict(
+        case='i3d', batch=list(batch[0].shape), loss=[off['loss'],
+                                                      on['loss']],
+        grad_norm=[off['grad_norm'], on['grad_norm']],
+        step_ms=[off['ms'], on['ms']],
+        max_memory_allocated_gib=[off['peak'], on['peak']],
+        card=card_line())))
+    # the same forward: equal far below bf16's resolution
+    require(abs(on['loss'] - off['loss']) <= 1e-6 * abs(off['loss']),
+            f'I3D with_cp: loss {on["loss"]} against {off["loss"]}')
+    require(on['peak'] < off['peak'],
+            f'I3D with_cp: peak {on["peak"]} GiB not below {off["peak"]}')
+    return launches
+
+
+def _train_cli_3d(root):
+    """(c) the train CLI on the I3D config: phase 5's videos listed twice
+    in the train split, two of them in the val split, two epochs with a
+    checkpoint and an evaluation each, then a run resumed from epoch 1;
+    returns the fused launches."""
+    import math
+
+    import numpy as np
+    import torch
+    from mvfnet_tpu_torch.config import Config
+    from mvfnet_tpu_torch.tools import train_recognizer as cli
+    train_ann = os.path.join(root, 'train_list_3d.txt')
+    with open(train_ann, 'w') as f:
+        f.writelines(f'video_{i} {DATA_FRAMES} {i}\n'
+                     for _ in range(2) for i in range(DATA_VIDEOS))
+    val = dict(ann_file=os.path.join(root, 'test_list_3d.txt'),
+               data_root=root)
+    base = Config.fromfile(CONFIGS_3D['i3d'])
+    config = write_config_3d(root, 'train3d_i3d', CONFIGS_3D['i3d'], dict(
+        train=dict(ann_file=train_ann, data_root=root),
+        val=dict(base.data['test'], **val)), [
+        'total_epochs = 2', 'resume_from = None',
+        'checkpoint_config = dict(interval=1)',
+        'log_config = dict(interval=1)', 'eval_interval = 1'])
+    work = os.path.join(root, 'train3d_i3d')
+    before = _fused_total()
+    t0 = time.perf_counter()
+    loop = cli.main([config, '--work_dir', work, '--validate'])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    iters, _ = train_log(work)
+    losses = [r['loss'] for r in iters]
+    per_epoch = loop.iters_per_epoch
+    require(per_epoch == 2 * DATA_VIDEOS // loop.loader.batch_size
+            and len(iters) == 2 * per_epoch == loop.step,
+            f'I3D train CLI: {per_epoch} iterations an epoch, {len(iters)} '
+            f'logged, {loop.step} steps')
+    require(all(math.isfinite(v) for r in iters for v in r.values()),
+            f'I3D train CLI: non-finite metrics {iters}')
+    for name in ('epoch_1.pth', 'epoch_2.pth', 'latest.pth', 'train.log'):
+        require(os.path.exists(os.path.join(work, name)),
+                f'I3D train CLI: {name} not written')
+    require([e['epoch'] for e in loop.eval_history] == [1, 2]
+            and all(np.asarray(e['scores']).shape == (DENSE3D_VIDEOS, 400)
+                    for e in loop.eval_history),
+            f'I3D train CLI: evaluations {loop.eval_history}')
+    with open(os.path.join(work, 'train.log')) as f:
+        require('model: Recognizer3D(ResNet_I3D, I3DClsHead)' in f.read(),
+                'I3D train CLI: the log does not name the model')
+    again = cli.main([config, '--work_dir', os.path.join(root, 'resumed3d'),
+                      '--resume_from', os.path.join(work, 'epoch_1.pth')])
+    tail, _ = train_log(os.path.join(root, 'resumed3d'))
+    rel = [abs(a['loss'] - b['loss']) / abs(b['loss'])
+           for a, b in zip(tail, iters[per_epoch:])]
+    require(again.step == 2 * per_epoch and len(tail) == per_epoch
+            and max(rel) <= RESUME_TOL,
+            f'I3D train CLI: resumed {again.step} steps, losses {rel} '
+            f'relative')
+    launches = _fused_total() - before
+    require(launches == 0, f'I3D train CLI: {launches} fused launches')
+    secs = [r['s'] for r in iters[1:]]
+    print('train_cli3d: ' + json.dumps(dict(
+        case='i3d', batch=list(_train_shape_3d(loop.cfg)),
+        iterations=len(iters), run_s=run_s, s_per_iter=secs,
+        median_s_per_iter=statistics.median(secs), loss=losses,
+        resumed_loss=[r['loss'] for r in tail], resume_loss_rel=rel,
+        fused_launches=launches, card=card_line())))
+    del loop, again
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _features_3d(root, ckpt):
+    """(d) the feature CLI on the SlowFast config: each view's row is the
+    slow and fast pathways' pooled features, 2048 + 256 wide; the FC of
+    one video's rows against its per-view logits. Returns the fused
+    launches."""
+    import math
+
+    import numpy as np
+    import torch
+    from mvfnet_tpu_torch.config import Config
+    from mvfnet_tpu_torch.data import build_dataset, device_norm_cfg
+    from mvfnet_tpu_torch.engine.train_step import make_eval_step
+    from mvfnet_tpu_torch.tools import feature_extractor
+    from mvfnet_tpu_torch.tools import test_recognizer as test_cli
+    from mvfnet_tpu_torch.utils.checkpoint import load_weights
+    config = os.path.join(root, 'test3d_slowfast.py')
+    cfg = Config.fromfile(config)
+    views = [op for op in cfg.data['test']['pipeline']
+             if op['type'] == 'SampleFrames'][0]['num_clips'] * 3
+    dim = 2048 + 256
+    out = os.path.join(root, 'features3d.json')
+    before = _fused_total()
+    t0 = time.perf_counter()
+    _quiet(feature_extractor.main, [config, ckpt, '--out', out])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = _fused_total() - before
+    with open(out) as f:
+        written = json.load(f)
+    require(len(written) == DENSE3D_VIDEOS and all(
+        len(v) == views * dim and all(map(math.isfinite, v))
+        for v in written.values()),
+        f'features3d: {len(written)} entries of '
+        f'{sorted({len(v) for v in written.values()})} floats')
+    require(launches == 0, f'features3d: {launches} fused launches')
+    model = test_cli.build_model(cfg, False, None)
+    load_weights(model, ckpt)
+    step = make_eval_step(model, norm_cfg=device_norm_cfg(
+        cfg.data['test']['pipeline']))
+    video = build_dataset(dict(cfg.data['test']))[0]['img_group'][None]
+    logits = step(model, video).float()
+    feats = torch.tensor(np.asarray(written['video_0']),
+                         device=logits.device).reshape(views, dim)
+    with torch.inference_mode():
+        fc = model.cls_head.fc(feats)
+    err = float((fc - logits).abs().max())
+    tol = 3e-2 * float(logits.abs().max())
+    print('features3d: ' + json.dumps(dict(
+        case='slowfast', videos=DENSE3D_VIDEOS, rows_per_video=views,
+        dim=dim, pass_s=secs, videos_per_s=DENSE3D_VIDEOS / secs,
+        fused_launches=launches, fc_vs_logits_max_abs_err=err, tol=tol,
+        card=card_line())))
+    require(err <= tol, f'features3d: FC of the rows vs the logits {err} > '
+                        f'{tol}')
+    del model, step
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_3d(root):
+    """Phase 10, the shipped 3-D configs, in ``root`` beside phase 5's
+    videos: returns the fused launches by case (all 0)."""
+    t0 = time.perf_counter()
+    launches, ckpts = _dense_3d(root)
+    launches = {f'test_{k}': v for k, v in launches.items()}
+    launches.update({f'train_{k}': v
+                     for k, v in _train_steps_3d().items()})
+    launches['train_cli_i3d'] = _train_cli_3d(root)
+    launches['features_slowfast'] = _features_3d(root, ckpts['slowfast'])
+    print(f'phase 10: {time.perf_counter() - t0:.3f} s')
+    return launches
+
+
 def phase_rawframes():
     """Phases 5-8 on one rawframe dataset in a temporary directory, then
-    phase 9 on the same frames as video files; returns their fused-kernel
-    launches by case and shape."""
+    phase 9 on the same frames as video files and phase 10 on the same
+    frames again; returns their fused-kernel launches by case (and shape
+    but in phase 10, which counts them all)."""
     import tempfile
 
     import cv2
@@ -2189,8 +2631,9 @@ def phase_rawframes():
         feature_launches = phase_entry_points(root, ann, resumed_losses)
         dist_launches = phase_dist(root, ann)
         video_launches = phase_video(root)
+        launches_3d = phase_3d(root)
         return (data_launches, train_launches, feature_launches,
-                dist_launches, video_launches)
+                dist_launches, video_launches, launches_3d)
 
 
 def main():
@@ -2220,7 +2663,7 @@ def main():
         launches = phase_slice()
         phase_train()
         (data_launches, train_launches, feature_launches,
-         dist_launches, video_launches) = phase_rawframes()
+         dist_launches, video_launches, launches_3d) = phase_rawframes()
         for r in records:
             key = (r['dtype'],) + tuple(r['shape'])
             r['launches'] = launches.get(key, 0)
@@ -2233,6 +2676,8 @@ def main():
                                   for case, ranks in dist_launches.items()}
             r['launches_video'] = {case: n.get(key, 0)
                                    for case, n in video_launches.items()}
+            # the 3-D paths launch no fused kernel at any shape
+            r['launches_3d'] = dict(launches_3d)
     except SmokeFailure as e:
         print(f'chip_smoke: FAILED: {e}', file=sys.stderr)
         return 1

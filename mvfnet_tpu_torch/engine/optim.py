@@ -10,7 +10,9 @@ names) and with ``torch.optim.SGD`` in place of an optax chain:
   ``(bn|gn)(\\d+)?.(weight|bias)``, which takes the deep stem's
   ``stem_bn*`` and a GroupNorm's affine (named ``bn*`` as a BatchNorm's) and
   misses a residual downsample's norm (``downsample.1.*``, the avg_down
-  shortcut's too): that norm gets full weight decay, as in the reference
+  shortcut's too): that norm gets full weight decay, as in the reference;
+  X3D's temporal stem norm ``conv1_3x1.1.*``, which the regex misses too,
+  is a norm parameter, as the JAX package labels its ``conv1_3x1_bn``
 - frozen parameters: in no group, so no update, no momentum and no decay;
   they keep their gradients, and the clip counts them, as the JAX chain
   clips before it freezes
@@ -29,7 +31,7 @@ from typing import Any, Callable, Dict, Iterable, Optional, Sequence
 
 import torch
 
-_NORM = re.compile(r'(bn|gn)(\d+)?.(weight|bias)')
+_NORM = re.compile(r'(bn|gn)(\d+)?.(weight|bias)|\.conv1_3x1\.1\.')
 NORM_FROZEN = '__norm_frozen__:'
 
 
@@ -113,13 +115,16 @@ def param_label(name: str, frozen_prefixes: Sequence[str] = ()) -> str:
 
 
 def frozen_prefixes_from_backbone(backbone_cfg: Dict[str, Any]) -> tuple:
-    """The reference's ``frozen_stages`` (stem, the deep stem's too, and
-    stages 1..k) and ``norm_frozen`` (every backbone norm's affine) as name
-    prefixes."""
+    """The reference's ``frozen_stages`` (stem, the deep stem's and X3D's
+    temporal stem too, and stages 1..k) and ``norm_frozen`` (every
+    backbone norm's affine) as name prefixes. They are the JAX package's
+    prefixes on its names: SlowFast's pathway modules (``slow_path.``,
+    ``fast_path.``) match none of them there either."""
     prefixes = []
     frozen_stages = backbone_cfg.get('frozen_stages', -1)
     if frozen_stages is not None and frozen_stages >= 0:
-        prefixes += ['backbone.conv1.', 'backbone.bn1.', 'backbone.stem_']
+        prefixes += ['backbone.conv1.', 'backbone.bn1.', 'backbone.stem_',
+                     'backbone.conv1_3x1.']
         prefixes += [f'backbone.layer{i}.'
                      for i in range(1, frozen_stages + 1)]
     if backbone_cfg.get('norm_frozen'):

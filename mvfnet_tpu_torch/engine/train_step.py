@@ -46,8 +46,9 @@ def make_eval_step(model: torch.nn.Module,
     """Build ``eval_step(model, imgs) -> scores`` for dense testing, or
     ``-> features`` (``model.forward_extract_feat``) with ``extract_feat``.
 
-    ``imgs`` is a ``(B, S, H, W, C)`` array or tensor (uint8 when the
-    pipeline deferred ``Normalize`` to the device, ``norm_cfg['device']``).
+    ``imgs`` is a ``(B, S, H, W, C)`` array or tensor, ``(B, clips, T, H,
+    W, C)`` for a ``Recognizer3D`` (uint8 when the pipeline deferred
+    ``Normalize`` to the device, ``norm_cfg['device']``).
     The frames move to ``device`` (CUDA by default), are normalized there,
     and go through the model in ``eval()`` under ``torch.inference_mode()``.
     """
@@ -117,7 +118,8 @@ def make_train_step(model: torch.nn.Module,
     """Build ``train_step(imgs, labels, generator=None) -> metrics``.
 
     ``optimizer`` is ``engine.optim.build_optimizer``'s. ``imgs`` is a
-    ``(B, S, H, W, C)`` array or tensor (uint8 when ``norm_cfg['device']``
+    ``(B, S, H, W, C)`` array or tensor, ``(B, clips, T, H, W, C)`` for a
+    ``Recognizer3D`` (uint8 when ``norm_cfg['device']``
     defers normalization to the device), ``labels`` ``(B,)`` class indices,
     ``generator`` the dropout mask's generator on ``device`` (CUDA by
     default). Without one, and with ``seed``, step t draws its mask from a
@@ -146,9 +148,9 @@ def make_train_step(model: torch.nn.Module,
     its own mask (the seed folds in the rank). At world 1 neither applies.
 
     ``remat`` (the config's ``backbone.with_cp``) sets the backbone's
-    ``with_cp``: each res-stage's activations are recomputed in the
-    backward instead of kept, with BatchNorm's running statistics moved
-    once.
+    ``with_cp``: each res-stage's activations (each stage of both
+    SlowFast pathways) are recomputed in the backward instead of kept,
+    with BatchNorm's running statistics moved once.
     """
     from ..models.common import set_sync_group
     from ..parallel import all_reduce_mean, world_rank

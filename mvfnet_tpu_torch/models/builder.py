@@ -22,6 +22,14 @@ def build_head(cfg: Dict[str, Any]):
     return build_from_cfg(cfg, HEADS)
 
 
+def model_name(cfg: Dict[str, Any]) -> str:
+    """A model config's recognizer, backbone and head types, as the CLIs
+    log them: ``'Recognizer3D(ResNet_I3D, I3DClsHead)'``."""
+    parts = [str((cfg.get(k) or {}).get('type'))
+             for k in ('backbone', 'cls_head')]
+    return f'{cfg.get("type")}({", ".join(parts)})'
+
+
 def build_recognizer(cfg: Dict[str, Any],
                      train_cfg: Optional[Dict] = None,
                      test_cfg: Optional[Dict] = None):

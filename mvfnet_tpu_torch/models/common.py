@@ -3,17 +3,22 @@
 Params are fp32; each layer computes in the dtype of its input, which the
 recognizer sets from the config's ``compute_dtype``. Tensors inside the
 models are NCHW in ``torch.channels_last`` memory format, so cuDNN and the
-hand kernels both see NHWC bytes.
+hand kernels both see NHWC bytes; the 3-D families' volumes are NCTHW in
+``torch.channels_last_3d``, the NTHWC bytes of the JAX package's layout and
+of the data pipeline's ``FormatShape('NTHWC')``, so that entering the
+backbone is a view and cuDNN picks its channels-last 3-D convolutions.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ..ops.mvf import hard_sigmoid
 
 # torch BatchNorm defaults; flax's momentum 0.9 weighs the OLD statistics,
 # torch's 0.1 the new ones: the same update
@@ -195,6 +200,78 @@ def conv2d(in_channels: int, out_channels: int, kernel_size: int, *,
                   padding=padding, dilation=dilation, bias=bias)
 
 
+class Conv3d(nn.Conv3d):
+    """``nn.Conv3d`` that casts its fp32 weight to the input's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
+def conv3d(in_channels: int, out_channels: int, kernel: Tuple[int, ...], *,
+           stride: Tuple[int, ...] = (1, 1, 1),
+           padding: Optional[Tuple[int, ...]] = None,
+           dilation: Tuple[int, ...] = (1, 1, 1), groups: int = 1,
+           bias: bool = False) -> Conv3d:
+    """torch-semantics Conv3d on NCTHW, no bias by default; ``padding``
+    defaults to ``(k - 1) // 2`` per axis (the JAX package's ``conv3d``,
+    ``backbones/resnet_i3d.py:27-54``)."""
+    kernel = tuple(kernel)
+    if padding is None:
+        padding = tuple((k - 1) // 2 for k in kernel)
+    return Conv3d(in_channels, out_channels, kernel, stride=tuple(stride),
+                  padding=tuple(padding), dilation=tuple(dilation),
+                  groups=groups, bias=bias)
+
+
+def max_pool3d(x: torch.Tensor, kernel, stride, padding) -> torch.Tensor:
+    """``MaxPool3d(kernel, stride, padding)`` on NCTHW; padding never wins
+    the max."""
+    return F.max_pool3d(x, tuple(kernel), tuple(stride), tuple(padding))
+
+
+def avg_pool3d(x: torch.Tensor, kernel, stride, padding=(0, 0, 0),
+               count_include_pad: bool = True,
+               ceil_mode: bool = False) -> torch.Tensor:
+    """``AvgPool3d`` on NCTHW, in x's dtype: the avd layer's ``(1, 3, 3)``
+    window with padding ``(0, 1, 1)`` and avg_down's ``(1, s, s)`` ceil-mode
+    window without the padding in its count. Below the window the ceil-mode
+    pool gives one value, as torch does (the JAX package's ``avg_pool3d``
+    gives an empty map, as its 2-D pool does)."""
+    return F.avg_pool3d(x, tuple(kernel), tuple(stride), tuple(padding),
+                        ceil_mode=ceil_mode,
+                        count_include_pad=count_include_pad)
+
+
+class SEModule(nn.Module):
+    """Squeeze-and-excitation on NC... input of any spatial rank (the
+    reference's SE3D, ``se_module.py:27-67``, and the JAX package's
+    ``SEModule``): the mean over every axis after the channels, ``fc1``,
+    relu, ``fc2``, a sigmoid (hard with ``use_hs``), and the scale. ``fc1``
+    and ``fc2`` keep the reference's 1x1x1 ``Conv3d`` weights with biases;
+    they run as matrix products on the pooled vector."""
+
+    def __init__(self, channels: int, reduction: int = 16,
+                 use_hs: bool = False):
+        super().__init__()
+        self.use_hs = use_hs
+        self.fc1 = conv3d(channels, channels // reduction, (1, 1, 1),
+                          bias=True)
+        self.fc2 = conv3d(channels // reduction, channels, (1, 1, 1),
+                          bias=True)
+
+    @staticmethod
+    def _fc(fc: Conv3d, y: torch.Tensor) -> torch.Tensor:
+        return F.linear(y, fc.weight.flatten(1).to(y.dtype),
+                        fc.bias.to(y.dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = x.mean(dim=tuple(range(2, x.ndim)))
+        y = self._fc(self.fc2, torch.relu(self._fc(self.fc1, y)))
+        y = hard_sigmoid(y) if self.use_hs else torch.sigmoid(y)
+        return x * y.reshape(y.shape + (1,) * (x.ndim - 2))
+
+
 def max_pool_same_as_torch(window: int = 3, stride: int = 2,
                            padding: int = 1) -> nn.MaxPool2d:
     """``MaxPool2d(window, stride, padding)``: padding never wins the max."""
@@ -222,6 +299,11 @@ def to_nhwc(x: torch.Tensor) -> torch.Tensor:
 def to_nchw(x: torch.Tensor) -> torch.Tensor:
     """NHWC -> NCHW view (channels_last when x is contiguous)."""
     return x.permute(0, 3, 1, 2)
+
+
+def to_ncthw(x: torch.Tensor) -> torch.Tensor:
+    """NTHWC -> NCTHW view (channels_last_3d when x is contiguous)."""
+    return x.permute(0, 4, 1, 2, 3)
 
 
 def lecun_normal_(weight: torch.Tensor, generator: torch.Generator):

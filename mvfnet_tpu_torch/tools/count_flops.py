@@ -5,7 +5,9 @@
 Builds the config's recognizer (``average_clips=None``, the config's
 ``compute_dtype``) on the ``meta`` device and prints its parameters and the
 MACs and FLOPs of one test forward at the input shape (default ``(1,
-clip_len, 224, 224, 3)``), counted by ``utils.flops.get_flop_stats``
+clip_len, 224, 224, 3)``, the root CLI's rule, with ``clip_len`` 8 unless
+the config sets it; a ``Recognizer3D`` takes one clip of that many frames,
+``(1, 1, clip_len, 224, 224, 3)``), counted by ``utils.flops.get_flop_stats``
 (``FlopCounterMode``: convolutions and matrix products). The reference's
 GFLOPs columns count MACs. Nothing runs on a card.
 """
@@ -20,7 +22,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(description='Count model FLOPs')
     parser.add_argument('config', help='config file path')
     parser.add_argument('--shape', type=int, nargs='+', default=None,
-                        help='input shape B S H W C (default: 1 clip_len '
+                        help='input shape B S H W C, or B clips T H W C '
+                             'for a 3-D recognizer (default: 1 [1] clip_len '
                              '224 224 3)')
     return parser.parse_args(argv)
 
@@ -36,7 +39,10 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     model = build_recognizer(dict(cfg.model, dtype=cfg.get('compute_dtype')),
                              test_cfg=dict(average_clips=None))
     clip_len = cfg.get('clip_len', 8)
-    shape = tuple(args.shape) if args.shape else (1, clip_len, 224, 224, 3)
+    shape = (1, clip_len, 224, 224, 3)
+    if cfg.model['type'] == 'Recognizer3D':
+        shape = (1, 1) + shape[1:]
+    shape = tuple(args.shape) if args.shape else shape
     stats = get_flop_stats(model, shape)
     print(f'input shape: {shape}')
     print(f'params: {stats["params"] / 1e6:.2f} M')

@@ -55,6 +55,7 @@ def _extract(args, device) -> Dict[str, List[float]]:
     from ..config import Config
     from ..data import build_dataset, dataset_decoder, device_norm_cfg
     from ..engine.eval import evaluate_dataset
+    from ..models.builder import model_name
     from ..parallel import is_main_process
     from ..utils.logging import get_root_logger
     from .test_recognizer import build_model, load_checkpoint
@@ -62,6 +63,8 @@ def _extract(args, device) -> Dict[str, List[float]]:
     cfg = Config.fromfile(args.config)
     logger = get_root_logger(cfg.get('log_level', 'INFO'))
     model = build_model(cfg, args.fcn_testing, None, extract_feat=True)
+    logger.info('model: %s, compute dtype %s', model_name(cfg.model),
+                model.compute_dtype)
     load_checkpoint(model, args.checkpoint, logger)
 
     dataset = build_dataset(dict(cfg.data['test']))

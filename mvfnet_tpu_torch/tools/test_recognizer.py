@@ -97,6 +97,7 @@ def _test(args, device) -> Dict[str, Any]:
     from ..config import Config
     from ..data import build_dataset, dataset_decoder, device_norm_cfg
     from ..engine.eval import evaluate_dataset
+    from ..models.builder import model_name
     from ..parallel import is_main_process
     from ..utils.logging import get_root_logger
     from ..utils.metrics import mean_class_accuracy, top_k_accuracy
@@ -105,6 +106,8 @@ def _test(args, device) -> Dict[str, Any]:
     logger = get_root_logger(cfg.get('log_level', 'INFO'))
     model = build_model(cfg, args.fcn_testing, args.average_clips,
                         args.view_chunk)
+    logger.info('model: %s, compute dtype %s', model_name(cfg.model),
+                model.compute_dtype)
     load_checkpoint(model, args.checkpoint, logger)
 
     dataset = build_dataset(dict(cfg.data['test']))

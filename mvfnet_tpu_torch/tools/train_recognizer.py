@@ -123,6 +123,7 @@ def _train(args, device):
     from ..data import build_dataset, dataset_decoder
     from ..engine.train_loop import train_network
     from ..models import build_recognizer
+    from ..models.builder import model_name
     from ..parallel import get_dist_info
     from ..utils.logging import get_root_logger
 
@@ -148,6 +149,7 @@ def _train(args, device):
     try:
         logger.info('distributed info: %s', info)
         logger.info('config: %s', args.config)
+        logger.info('model: %s', model_name(cfg.model))
         dtype = 'bfloat16' if args.bf16 else cfg.get('compute_dtype',
                                                      'float32')
         model = build_recognizer(dict(cfg.model, dtype=dtype),

@@ -3,10 +3,14 @@
 - ``state_dict_from_jax``: the JAX package's recognizer variables
   (``{'params', 'batch_stats'}`` as nested dicts of numpy arrays) -> the
   port's ``state_dict`` in the reference torch vocabulary. It inverts the
-  JAX importer's layout changes: HWIO conv kernels -> OIHW, ``(3, C)`` MVF
-  taps -> Conv3d-shaped ``(C, 1, kT, kH, kW)``, Dense ``(in, out)`` ->
-  Linear ``(out, in)``, and the BN names. ``jax_entries`` gives the same
-  mapping leaf by leaf, with each leaf's JAX path;
+  JAX importer's layout changes: HWIO conv kernels -> OIHW, THWIO ones ->
+  OITHW, ``(3, C)`` MVF taps -> Conv3d-shaped ``(C, 1, kT, kH, kW)``,
+  Dense ``(in, out)`` -> Linear ``(out, in)`` (X3D's SE pair -> the
+  reference's 1x1x1 Conv3d ``(out, in, 1, 1, 1)``), the BN names, and the
+  3-D families' module names (SlowFast's flat ``slow_*``/``fast_*`` ->
+  ``slow_path.``/``fast_path.``, X3D's ``conv1_3x1``/``conv1_3x1_bn`` ->
+  ``conv1_3x1.{0,1}``, the I3D heads' FC -> ``fc_cls``). ``jax_entries``
+  gives the same mapping leaf by leaf, with each leaf's JAX path;
   ``jax_variables_from_state_dict`` is its inverse.
 - ``load_torch_state_dict``: a reference ``.pth`` -> ``{name: tensor}``.
 - ``import_torch_state_dict``: the non-strict import of a reference or
@@ -60,18 +64,31 @@ def _leaves(tree: Dict[str, Any], path: Tuple[str, ...] = ()
 
 
 def _module_name(name: str) -> str:
-    """JAX module name -> torch module path ('layer3_0' -> 'layer3.0')."""
+    """JAX module name -> torch module path ('layer3_0' -> 'layer3.0',
+    'slow_layer3_0' -> 'slow_path.layer3.0')."""
     m = re.fullmatch(r'layer(\d+)_(\d+)', name)
     if m:
         return f'layer{m.group(1)}.{m.group(2)}'
+    m = re.fullmatch(r'(slow|fast)_(.+)', name)
+    if m:
+        return f'{m.group(1)}_path.{_module_name(m.group(2))}'
     return {'downsample_conv': 'downsample.0',
             'downsample_bn': 'downsample.1',
+            'conv1_3x1': 'conv1_3x1.0', 'conv1_3x1_bn': 'conv1_3x1.1',
             'backbone_mod': 'backbone', 'head_mod': 'cls_head',
             'fc': 'new_fc'}.get(name, name)
 
 
+def _head_fc(leaves) -> str:
+    """The head FC's port name for a JAX variable tree: ``fc_cls`` (the I3D
+    heads) when the backbone convolves in 3-D, else ``new_fc`` (TSN)."""
+    return 'fc_cls' if any(path[-1] == 'kernel' and np.ndim(v) == 5
+                           for path, v in leaves) else 'new_fc'
+
+
 def _torch_entry(path: Tuple[str, ...], value: np.ndarray,
-                 mvf_blocks: set) -> Tuple[str, np.ndarray]:
+                 mvf_blocks: set, head_fc: str = 'new_fc'
+                 ) -> Tuple[str, np.ndarray]:
     *mods, leaf = path
     if mods and mods[-1] == 'MVF_0':
         block = '.'.join(_module_name(m) for m in mods[:-1])
@@ -81,6 +98,13 @@ def _torch_entry(path: Tuple[str, ...], value: np.ndarray,
                     value.T.reshape((cs, 1) + _TAP_SHAPE[leaf]))
         return f'{block}.conv1.{_MVF_LEAF[leaf]}', value
     prefix = '.'.join(_module_name(m) for m in mods)
+    if prefix == 'cls_head.new_fc':
+        prefix = f'cls_head.{head_fc}'
+    if leaf == 'kernel' and value.ndim == 5:        # THWIO -> OITHW
+        return f'{prefix}.weight', value.transpose(4, 3, 0, 1, 2)
+    if leaf == 'kernel' and value.ndim == 2 and mods[-2] == 'se':
+        return (f'{prefix}.weight',
+                value.T.reshape(value.shape[::-1] + (1, 1, 1)))
     if leaf == 'kernel' and value.ndim == 4:
         if mods[-1] == 'conv1' and '.'.join(
                 _module_name(m) for m in mods[:-1]) in mvf_blocks:
@@ -102,8 +126,9 @@ def jax_entries(variables: Dict[str, Any]
               for path, v in _leaves(variables.get(coll, {}))]
     mvf_blocks = {'.'.join(_module_name(m) for m in path[:-2])
                   for _, path, _ in leaves if 'MVF_0' in path}
+    head_fc = _head_fc((path, v) for _, path, v in leaves)
     for coll, path, value in leaves:
-        name, v = _torch_entry(path, value, mvf_blocks)
+        name, v = _torch_entry(path, value, mvf_blocks, head_fc)
         yield coll, '/'.join(path), name, v
 
 
@@ -136,6 +161,7 @@ def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
 # ------------------------------------------------------- non-strict import
 
 _HEAD_ALIASES = ('new_fc', 'new_cls', 'fc_cls')
+_HEAD_FCS = ('new_fc', 'fc_cls')
 _BLOCK_CONV1 = re.compile(r'(backbone\.layer\d+\.\d+\.conv1)(\.net)?\.weight$')
 _AVG_DOWN_CONV = re.compile(r'\.downsample\.1\.weight$')
 
@@ -144,11 +170,11 @@ def _shortcut_name(key: str, value) -> str:
     """The reference's avg_down shortcut ``Sequential(pool, conv, norm)``
     names its conv ``downsample.1`` and its norm ``downsample.2``; the
     port's (``resnet.Downsample``) names them ``downsample.0`` and
-    ``downsample.1``, as the plain shortcut does. A 4-D
-    ``downsample.1.weight`` is such a conv."""
+    ``downsample.1``, as the plain shortcut does. A 4-D (in I3D
+    a 5-D) ``downsample.1.weight`` is such a conv."""
     if '.downsample.2.' in key:
         return key.replace('.downsample.2.', '.downsample.1.')
-    if _AVG_DOWN_CONV.search(key) and getattr(value, 'ndim', 0) == 4:
+    if _AVG_DOWN_CONV.search(key) and getattr(value, 'ndim', 0) in (4, 5):
         return key.replace('.downsample.1.', '.downsample.0.')
     return key
 
@@ -159,12 +185,17 @@ def _port_name(key: str, targets) -> Optional[str]:
     head trains fresh). A name that is not in ``targets`` is unexpected."""
     parts = key.split('.')
     if parts[0] == 'cls_head':
-        # new_fc: TSNClsHead; new_cls: its fcn alias; fc_cls: I3D heads
+        # new_fc: TSNClsHead; new_cls: its fcn alias; fc_cls: I3D heads;
+        # each loads into the model's head FC, whichever it is
         if len(parts) > 1 and parts[1] in _HEAD_ALIASES:
-            return 'cls_head.new_fc.' + ('weight' if parts[-1] == 'weight'
-                                         else 'bias')
+            fc = next((f for f in _HEAD_FCS
+                       if f'cls_head.{f}.weight' in targets), 'new_fc')
+            return f'cls_head.{fc}.' + ('weight' if parts[-1] == 'weight'
+                                        else 'bias')
         return key
-    if parts[0] == 'fc':
+    if parts[0] == 'fc' or 'layer4_lateral' in key:
+        # torchvision's classifier; SlowFast's last lateral, which the
+        # reference builds and its forward never uses
         return None
     name = key if parts[0] == 'backbone' else 'backbone.' + key
     m = _BLOCK_CONV1.match(name)
@@ -187,11 +218,16 @@ def import_torch_state_dict(model: torch.nn.Module,
 
     The key rules of the JAX package's ``import_torch_weights``
     (``mvfnet_tpu/utils/checkpoint.py:165-492``) for the 2-D ResNet (its
-    options included), MVF and the TSN head: ``module.`` prefixes are stripped,
-    ``num_batches_tracked`` and torchvision's ``fc.*`` are skipped,
-    ``cls_head.{new_fc,new_cls,fc_cls}.*`` load into ``cls_head.new_fc``, a
-    key without ``backbone.`` loads into the backbone, and a block's
-    ``conv1.weight`` and ``conv1.net.weight`` stand for each other. The
+    options included), MVF, the TSN head and the 3-D families (I3D,
+    SlowFast, X3D, whose port names are the reference's): ``module.``
+    prefixes are stripped, ``num_batches_tracked``, torchvision's ``fc.*``
+    and SlowFast's unused ``layer4_lateral`` are skipped,
+    ``cls_head.{new_fc,new_cls,fc_cls}.*`` load into the head's FC
+    (``new_fc`` or ``fc_cls``), a key without ``backbone.`` loads into the
+    backbone, and a block's ``conv1.weight`` and ``conv1.net.weight``
+    stand for each other. A 2-D kernel loads into a 3-D one of the same
+    other sizes inflated over time, ``w3d[t] = w2d / kT`` (the reference's
+    I3D ``init_weights``). The
     reference's avg_down shortcut (pool, conv, norm at indices 0-2) loads
     into the port's (conv, norm at 0-1); the JAX importer takes its conv
     for the norm and reports it mismatched (ROADMAP.md, section C). A key of
@@ -199,9 +235,11 @@ def import_torch_state_dict(model: torch.nn.Module,
     importer, also as unexpected; a key the model lacks is unexpected; a
     model entry no key reached keeps its value and is reported missing.
     ``inflate_in_channels`` (10 for Flow, 15 for RGBDiff) turns an RGB stem
-    into the mean over its input channels, broadcast. The vocabularies the
-    port has no model for (BNInception, MobileNet, I3D, SlowFast, X3D,
-    R(2+1)D, TRN, non-local) end up unexpected.
+    into the mean over its input channels, broadcast (before a temporal
+    inflation). The vocabularies the port has no model for (BNInception,
+    MobileNet, R(2+1)D, TRN, non-local) end up unexpected, and so do the
+    keys the JAX importer also reports: X3D's unused stem ``bn1``, biases
+    of convs without one, the fast pathway's laterals.
     """
     logger = logger or get_root_logger()
     targets = model.state_dict()
@@ -226,6 +264,10 @@ def import_torch_state_dict(model: torch.nn.Module,
             value = value.mean(dim=1, keepdim=True).expand(
                 -1, inflate_in_channels, -1, -1)
         target = targets[name]
+        if (value.ndim == 4 and target.ndim == 5 and value.shape
+                == target.shape[:2] + target.shape[3:]):
+            kt = target.shape[2]
+            value = (value / kt).unsqueeze(2).expand(target.shape)
         if value.shape != target.shape:
             mismatched.append(f'{name}: ckpt {tuple(value.shape)} vs model '
                               f'{tuple(target.shape)}')
@@ -333,6 +375,10 @@ _JAX_MODULE_RULES = (
     (re.compile(r'\blayer(\d+)\.(\d+)\b'), r'layer\1_\2'),
     (re.compile(r'\bdownsample\.0\b'), 'downsample_conv'),
     (re.compile(r'\bdownsample\.1\b'), 'downsample_bn'),
+    (re.compile(r'\bconv1_3x1\.0\b'), 'conv1_3x1'),
+    (re.compile(r'\bconv1_3x1\.1\b'), 'conv1_3x1_bn'),
+    (re.compile(r'\b(slow|fast)_path\.'), r'\1_'),
+    (re.compile(r'^cls_head\.fc_cls\.'), 'head_mod.fc.'),
     (re.compile(r'\bconv1\.net\b'), 'conv1'),
     (re.compile(r'\bconv1\.(shift_conv|h_conv|w_conv)\.weight$'),
      r'MVF_0.\1'),
@@ -362,6 +408,11 @@ def _jax_entry(name: str, value: torch.Tensor
     v = value.detach().cpu()
     if leaf in _TAP_SHAPE:                       # (C, 1, kT, kH, kW)
         return 'params', tuple(mods) + (leaf,), v.reshape(-1, 3).T.numpy()
+    if leaf == 'weight' and v.ndim == 5 and mods[-2] == 'se':
+        return 'params', tuple(mods) + ('kernel',), v.flatten(1).T.numpy()
+    if leaf == 'weight' and v.ndim == 5:
+        return 'params', tuple(mods) + ('kernel',), \
+            v.permute(2, 3, 4, 1, 0).numpy()
     if leaf == 'weight' and v.ndim == 4:
         return 'params', tuple(mods) + ('kernel',), \
             v.permute(2, 3, 1, 0).numpy()
@@ -383,8 +434,8 @@ def jax_variables_from_state_dict(state_dict: Dict[str, torch.Tensor]
                                   ) -> Dict[str, Dict[str, Any]]:
     """The JAX package's recognizer variables ``{'params', 'batch_stats'}``
     (nested dicts of numpy arrays in the JAX layout) for a port
-    ``state_dict``: OIHW -> HWIO, Conv3d-shaped MVF taps -> ``(3, C)``,
-    Linear -> Dense, the BN names. The inverse of ``state_dict_from_jax``;
+    ``state_dict``: OIHW -> HWIO, OITHW -> THWIO, Conv3d-shaped MVF taps ->
+    ``(3, C)``, Linear and the SE pair -> Dense, the BN and module names. The inverse of ``state_dict_from_jax``;
     ``num_batches_tracked`` is dropped."""
     out: Dict[str, Dict[str, Any]] = {c: {} for c in _COLLECTIONS}
     for name, value in state_dict.items():
@@ -508,6 +559,8 @@ def load_optax_state(model: torch.nn.Module, optimizer,
     names = _param_names(model)
     mvf_blocks = {n[:-len('.conv1.net.weight')] for n in names.values()
                   if n.endswith('.conv1.net.weight')}
+    head_fc = next((f for f in _HEAD_FCS
+                    if f'cls_head.{f}.weight' in names.values()), 'new_fc')
     groups = {g['label']: g['params'] for g in optimizer.param_groups}
     for label, keys in layout.items():
         chain = inner[label].get('inner_state', {})
@@ -527,7 +580,7 @@ def load_optax_state(model: torch.nn.Module, optimizer,
             if path not in leaves:
                 raise _layout_error(f'no {label!r} trace for {name}')
             back, v = _torch_entry(path, np.asarray(leaves.pop(path)),
-                                   mvf_blocks)
+                                   mvf_blocks, head_fc)
             if back != name or tuple(v.shape) != tuple(p.shape):
                 raise _layout_error(f'trace {"/".join(path)} does not fit '
                                     f'{name}')

@@ -28,7 +28,8 @@ def get_flop_stats(model: torch.nn.Module, input_shape: Tuple[int, ...],
                    device: Union[str, torch.device] = 'meta'
                    ) -> Dict[str, Any]:
     """FLOPs of one dense-test forward (``return_loss=False``, eval mode)
-    at ``input_shape`` (B, S, H, W, C): ``flops``, ``macs``, ``gmacs`` and
+    at ``input_shape`` (B, S, H, W, C), or (B, clips, T, H, W, C) for a
+    ``Recognizer3D``: ``flops``, ``macs``, ``gmacs`` and
     ``params``. ``model`` is moved to ``device`` ('meta' or 'cpu')."""
     from torch.utils.flop_counter import FlopCounterMode
     device = torch.device(device)

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 a small train step that must not launch them, a bf16 train loop epoch whose
-mid-train evaluation must, a feature-extraction pass that must, and the
-eval loop's pinned-memory prefetch.
+mid-train evaluation must, a feature-extraction pass that must, the eval
+loop's pinned-memory prefetch, the synced BatchNorm on 2-D and 3-D maps,
+and a small I3D in bf16 that must match the CPU and launch no kernel.
 
 Every test here carries the ``cuda`` marker and skips without a GPU. This
 file imports neither JAX nor the JAX package, so it also runs on a machine
@@ -342,6 +343,18 @@ def test_synced_batchnorm_on_nccl_matches_plain(cuda, dtype):
     plain one on the same input: output, input, weight and bias gradients
     and running statistics (statistics in fp32 either way; bf16 output is
     rounded once, so bf16 is held to its resolution)."""
+    _synced_batchnorm_case(dtype, (12, 64, 28, 28), torch.channels_last)
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_synced_batchnorm_3d_on_nccl_matches_plain(cuda, dtype):
+    """The same on the 3-D families' NCTHW volumes in
+    ``channels_last_3d`` (the I3D config's ``BN3d``)."""
+    _synced_batchnorm_case(dtype, (4, 64, 4, 14, 14),
+                           torch.channels_last_3d)
+
+
+def _synced_batchnorm_case(dtype, shape, memory_format):
     import torch.distributed as dist
     from mvfnet_tpu_torch.models.common import BatchNorm, set_sync_group
     from mvfnet_tpu_torch.parallel import free_port
@@ -350,8 +363,8 @@ def test_synced_batchnorm_on_nccl_matches_plain(cuda, dtype):
     try:
         dt = getattr(torch, dtype)
         gen = torch.Generator().manual_seed(0)
-        x = (torch.randn(12, 64, 28, 28, generator=gen) * 2 + 0.5).cuda()
-        g = torch.randn(12, 64, 28, 28, generator=gen).cuda().to(dt)
+        x = (torch.randn(*shape, generator=gen) * 2 + 0.5).cuda()
+        g = torch.randn(*shape, generator=gen).cuda().to(dt)
         weight = torch.rand(64, generator=gen) + 0.5
         bias = torch.rand(64, generator=gen) - 0.5
         out = []
@@ -361,7 +374,7 @@ def test_synced_batchnorm_on_nccl_matches_plain(cuda, dtype):
                 bn.weight.copy_(weight)
                 bn.bias.copy_(bias)
             set_sync_group(bn, dist.group.WORLD if sync else None)
-            xi = x.to(dt).contiguous(memory_format=torch.channels_last)
+            xi = x.to(dt).contiguous(memory_format=memory_format)
             xi.requires_grad_()
             y = bn(xi)
             assert y.dtype == dt
@@ -379,3 +392,40 @@ def test_synced_batchnorm_on_nccl_matches_plain(cuda, dtype):
             assert err <= tol * scale, (name, err, scale)
     finally:
         dist.destroy_process_group()
+
+
+def test_i3d_on_the_card_matches_fp32_cpu_and_launches_no_kernel(cuda):
+    """A small I3D (the I3D config's backbone, ResNet-18 on two stages) in
+    bf16 on the card: eval logits within 3e-2 of max|logit| of the same
+    weights' fp32 forward on the CPU, and a finite train step; the 2-D
+    fused kernel launches in neither."""
+    cfg = dict(type='Recognizer3D', backbone=dict(
+        type='ResNet_I3D', depth=18, num_stages=2, out_indices=(1,),
+        conv1_kernel=(5, 7, 7), conv1_stride_t=2, pool1_stride_t=2,
+        norm_eval=False, norm_cfg=dict(type='BN3d')),
+        cls_head=dict(type='I3DClsHead', in_channels=128, num_classes=7,
+                      dropout_ratio=0.5))
+    model = build_recognizer(dict(cfg, dtype='bfloat16'),
+                             test_cfg=dict(average_clips=None))
+    model.init_weights(torch.Generator().manual_seed(0), randomize_bn=True)
+    cpu = build_recognizer(dict(cfg, dtype='float32'),
+                           test_cfg=dict(average_clips=None))
+    cpu.load_state_dict(model.state_dict())
+    x = np.random.RandomState(1).randint(0, 256, (2, 3, 8, 64, 64, 3),
+                                         dtype=np.uint8)
+    norm = dict(mean=[123.675, 116.28, 103.53], std=[58.395, 57.12, 57.375],
+                to_rgb=True, device=True)
+    want = make_eval_step(cpu, norm, device='cpu')(cpu, x)
+    fb.bottleneck_eval_cuda.launches = 0
+    got = make_eval_step(model, norm)(model, x).float().cpu()
+    assert got.shape == want.shape == (6, 7)
+    err = (got - want).abs().max().item()
+    assert err <= 3e-2 * want.abs().max().item(), err
+    sched = build_lr_schedule(dict(policy='cosine'), 0.01, 10, 1)
+    opt = build_optimizer(model, dict(type='SGD', lr=0.01, momentum=0.9),
+                          sched)
+    step = make_train_step(model, opt, sched, norm_cfg=norm)
+    m = step(x[:, :1], np.arange(2), torch.Generator(device='cuda'))
+    assert np.isfinite(m['loss'].item()) and np.isfinite(
+        m['grad_norm'].item())
+    assert fb.bottleneck_eval_cuda.launches == 0

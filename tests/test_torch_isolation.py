@@ -40,7 +40,11 @@ def test_port_sources_import_no_jax_package():
     assert len(files) > 15
     names = {os.path.relpath(f, PORT) for f in files}
     assert {'parallel/__init__.py', 'parallel/dist.py',
-            'parallel/launch.py', 'data/video_io.py'} <= names
+            'parallel/launch.py', 'data/video_io.py',
+            'models/backbones/resnet_i3d.py',
+            'models/backbones/resnet_i3d_slowfast.py',
+            'models/backbones/resnet_x3d.py', 'models/heads/i3d_head.py',
+            'models/recognizers/recognizer3d.py'} <= names
     bad = [(os.path.relpath(f, REPO), root) for f in files
            for root in _imported_roots(f) if root in FORBIDDEN]
     assert bad == []
@@ -65,6 +69,11 @@ def test_import_loads_no_jax_triton_or_kernel():
         'import mvfnet_tpu_torch.parallel.launch\n'
         'import mvfnet_tpu_torch.data.video_io\n'
         'import mvfnet_tpu_torch.models.backbones.resnet\n'
+        'import mvfnet_tpu_torch.models.backbones.resnet_i3d\n'
+        'import mvfnet_tpu_torch.models.backbones.resnet_i3d_slowfast\n'
+        'import mvfnet_tpu_torch.models.backbones.resnet_x3d\n'
+        'import mvfnet_tpu_torch.models.heads.i3d_head\n'
+        'import mvfnet_tpu_torch.models.recognizers.recognizer3d\n'
         'from mvfnet_tpu_torch.ops import _cuda\n'
         'mods = [m for m in sys.modules if m.split(".")[0] in '
         '("jax", "flax", "msgpack", "triton", "av", "decord") '
