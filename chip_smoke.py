@@ -123,14 +123,33 @@ Phases, each of which exits non-zero on failure:
    ``train3d:``, ``with_cp3d:``, ``train_cli3d:``, ``features3d:``
    lines).
 
+11. the other 2-D families, on the same frames, bf16, seeded weights: (a)
+   the shipped BNInception config (its splits and ``compute_dtype`` set):
+   the test CLI over 2 videos (25 segments x TenCrop of 224^2) as a
+   warm-up, a timed and a profiled pass, ``convert_checkpoint`` of its
+   ``.pth`` scored again through the CLI (within 1e-5), a train step at
+   its batch, the train CLI for 2 epochs of 2 iterations and a resume;
+   (b)-(d) the flagship config with MobileNetV2-1.0 and TSM or MVF, R50
+   with CoST or non-local blocks, the flagship with a TRN or TRNmultiscale
+   head: a train step at 12 x 8 x 224^2 (bf16 against fp32 from one state,
+   the median of 5 after 2 warm-ups, the peak) and a dense video through
+   the eval step, its fused launches against the count worked out from
+   the config (``expected_fused``); (e) the I3D config with non-local
+   blocks in stages 2-3: one video and a train step; (f) RecognizerC2D,
+   one clip; (g) ``validate_k400`` on the 8 videos with phase 5's flagship
+   ``.pth`` (its JSON line). One view of each case on the card lies within
+   3e-2 of max|logit| of the fp32 CPU forward (``family11:`` lines).
+
 Prints the ``{"kernels": [...]}`` line (launches of the fused kernel per
 shape in phases 3, 5, 6 and 7, per rank in phase 8's cases as
-``launches_dist``, per case in phase 9 as ``launches_video`` and in phase
-10 as ``launches_3d``), the card's name and power limit,
+``launches_dist``, per case in phase 9 as ``launches_video``, in phase
+10 as ``launches_3d`` and in phase 11 as ``launches_2d``), the card's name
+and power limit,
 and last ``{"ok": true, "device": {...}}``. Without CUDA, or without the
 repository beside it, it exits non-zero and prints no result.
 """
 
+import collections
 import json
 import os
 import statistics
@@ -167,12 +186,20 @@ FUSED_SHAPES = [
     ('video_layer2', (120, 32, 32, 512), 128, 0),
     ('video_val_layer1', (4, 56, 56, 256), 64, 0),
     ('video_val_layer2', (4, 28, 28, 512), 128, 0),
+    ('nonlocal_layer3', (240, 16, 16, 1024), 256, 0),
+    ('nonlocal_layer4', (240, 8, 8, 2048), 512, 0),
 ]
 # val_layer1-2 are the train CLI's mid-train evaluation (one clip of 8
 # frames at a 224^2 centre crop); their launches per val video. The video_
 # shapes are the 4x16 video recipe's (phase 9): its dense test (3 crops x
-# 10 clips x 4 frames at 256^2) and its train CLI's evaluation (4 frames)
+# 10 clips x 4 frames at 256^2) and its train CLI's evaluation (4 frames);
+# nonlocal_layer3-4 are phase 11's R50 without MVF (non-local blocks), whose
+# stages 3-4 fuse too
 VAL_LAUNCHES = {'val_layer1': 2, 'val_layer2': 3}
+# bf16 shapes whose rows do not fit the tiled kernel's shared memory: they
+# take the general kernel (every other bf16 shape with Cin and Cm multiples
+# of 64 must take the tiled one)
+GENERAL_BF16 = {'nonlocal_layer3'}
 TIMED_RUNS = 25
 VIDEOS = 3
 VIEWS, CROP = 30, 256       # a dense-test video: 3 crops x 10 clips of 256^2
@@ -229,6 +256,17 @@ CONFIGS_3D = {
 }
 DENSE3D_VIDEOS = 2
 TRAIN3D_STEPS = 3
+# phase 11: the shipped BNInception config's test CLI over FAMILY_VIDEOS of
+# phase 5's videos (25 segments x TenCrop of 224^2); the 2-D cases of
+# FAMILY_2D (MobileNetV2-1.0 with TSM and with MVF, R50 with CoST or
+# non-local blocks in place of MVF, the flagship with a TRN and a
+# TRNmultiscale head) each train at the flagship's batch and score a dense
+# video FAMILY_EVAL_RUNS times
+BNI_CONFIG = os.path.join(ROOT, 'configs', 'tsn', 'tsn_bninception_k400.py')
+FAMILY_VIDEOS = 2
+FAMILY_2D = ('mbv2_tsm', 'mbv2_mvf', 'r50_cost', 'r50_nonlocal', 'mvf_trn',
+             'mvf_trnmultiscale')
+FAMILY_EVAL_RUNS = 3
 KERNEL = dict(name='fused_bottleneck', route='cuda',
               source='mvfnet_tpu_torch/csrc/fused_bottleneck.cu',
               replaces='mvfnet_tpu/ops/fused_block.py:144')
@@ -355,10 +393,11 @@ def phase_kernel():
                 print('kernel check: ' + json.dumps(rec))
                 require(ok, f'fused_bottleneck {name} {dtype_name}: max abs '
                             f'err {err} > tol {tol}')
-                require(rec['path'] == 'tiled' or dtype_name != 'bfloat16'
+                want_path = 'general' if name in GENERAL_BF16 else 'tiled'
+                require(rec['path'] == want_path or dtype_name != 'bfloat16'
                         or cin % 64 or cm % 64,
                         f'fused_bottleneck {name}: bf16 took the '
-                        f'{rec["path"]} kernel, not the tiled one')
+                        f'{rec["path"]} kernel, not the {want_path} one')
                 records.append(rec)
                 del args, got, want
                 torch.cuda.empty_cache()
@@ -2609,12 +2648,526 @@ def phase_3d(root):
     print(f'phase 10: {time.perf_counter() - t0:.3f} s')
     return launches
 
+def expected_fused(model_cfg, frames, hw, batches=1):
+    """The fused kernel's launches worked out from a 2-D model config alone,
+    by (dtype, N, H, W, Cin, Cm): ``batches`` eval batches of ``frames``
+    frames of hw^2 through a bottleneck ResNet (strides 1, 2, 2, 2 after the
+    stem's 4) launch it once in each block after a stage's first, in each
+    stage that no temporal module takes (MVF takes a selected stage's every
+    block, CoST every block after the first: neither fuses). Every other
+    backbone launches nothing."""
+    bb = model_cfg['backbone']
+    out = collections.Counter()
+    if bb['type'] != 'ResNet' or bb['depth'] < 50:
+        return out
+    blocks = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3),
+              152: (3, 8, 36, 3)}[bb['depth']]
+    module = model_cfg.get('module_cfg') or {}
+    freq = (module.get('mvf_freq', module.get('shift_freq', (1, 1, 1, 1)))
+            if module else (0, 0, 0, 0))
+    side = hw // 4
+    for i, n in enumerate(blocks):
+        side = side if i == 0 else side // 2
+        planes = 64 * 2 ** i
+        if not freq[i]:
+            out[('bfloat16', frames, side, side, 4 * planes, planes)] += \
+                (n - 1) * batches
+    return out
+
+
+def _launches_by_shape():
+    from mvfnet_tpu_torch.ops import fused_block as fb
+    return collections.Counter(fb.bottleneck_eval_cuda.launches_by_shape)
+
+
+def _family_model_cfg(name):
+    """Phase 11's 2-D cases as model configs: the flagship's (R50 + MVF in
+    stages 3-4, 8 segments, 400 classes, bf16) with MobileNetV2-1.0 and TSM
+    or MVF, CoST or non-local blocks in place of MVF, or a TRN head, and the
+    shipped BNInception config's."""
+    from mvfnet_tpu_torch.config import Config
+    if name == 'bninception':
+        cfg = Config.fromfile(BNI_CONFIG)
+        return dict(cfg.model, dtype='bfloat16'), cfg
+    cfg = Config.fromfile(CONFIG)
+    model = dict(cfg.model, dtype=cfg.compute_dtype)
+    head = dict(model['cls_head'])
+    mvf = dict(model['module_cfg'])
+    if name.startswith('mbv2'):
+        model['backbone'] = dict(type='MobileNetV2', width_mult=1.0)
+        head['in_channels'] = 1280
+        model['module_cfg'] = (dict(type='tsm', n_segment=8, n_div=8)
+                               if name == 'mbv2_tsm' else mvf)
+    elif name == 'r50_cost':
+        model['module_cfg'] = dict(type='CoST', n_segment=8,
+                                   shift_freq=(0, 0, 1, 1))
+    elif name == 'r50_nonlocal':
+        model['module_cfg'] = None
+        model['nonlocal_cfg'] = dict(n_segment=8)
+    elif name in ('mvf_trn', 'mvf_trnmultiscale'):
+        # the TSN path: frames pooled, projected to 256 and related (the
+        # fcn path would return the projection, as the JAX head does)
+        model['fcn_testing'] = False
+        head['consensus_cfg'] = dict(
+            type='TRN' if name == 'mvf_trn' else 'TRNmultiscale',
+            num_frames=8)
+    model['cls_head'] = head
+    return model, cfg
+
+
+def tame_nonlocal(model, scale=0.1):
+    """The non-local blocks' ``conv_in`` and BatchNorm gamma scaled down
+    after the random init, as in the CPU tests: their cubic affinity
+    overflows bf16 from the plain init, in the JAX package too."""
+    import torch
+    from mvfnet_tpu_torch.models.modules.nonlocal_attention import \
+        LocalAttention
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, LocalAttention):
+                m.conv_in.weight.mul_(scale)
+                m.bn.weight.mul_(scale)
+    return model
+
+
+def _family_model(model_cfg, seed=0):
+    """The config's recognizer with seeded random weights (BN statistics
+    drawn too), non-local blocks tamed."""
+    import torch
+    from mvfnet_tpu_torch.models import build_recognizer
+    model = build_recognizer(dict(model_cfg), test_cfg=dict(
+        average_clips='prob'))
+    model.init_weights(torch.Generator().manual_seed(seed),
+                       randomize_bn=True)
+    return tame_nonlocal(model)
+
+
+def _family_step(model, cfg):
+    """The config's recipe as a train step on the card (device
+    normalization)."""
+    from mvfnet_tpu_torch.engine.optim import (build_lr_schedule,
+                                               build_optimizer,
+                                               frozen_prefixes_from_backbone)
+    from mvfnet_tpu_torch.engine.train_step import make_train_step
+    schedule = build_lr_schedule(cfg.lr_config, cfg.optimizer['lr'],
+                                 ITERS_PER_EPOCH, cfg.total_epochs)
+    opt = build_optimizer(model, cfg.optimizer, schedule,
+                          grad_clip=cfg.optimizer_config['grad_clip'],
+                          frozen_prefixes=frozen_prefixes_from_backbone(
+                              cfg.model['backbone']))
+    return make_train_step(model, opt, schedule,
+                           norm_cfg=dict(cfg.img_norm_cfg, device=True))
+
+
+def _family_train(name, model, cfg, shape):
+    """One case's train step on uint8 batches of ``shape``: one step from
+    copies of the initial state in bf16 and in fp32 (TF32 off; the losses
+    within 2e-2), then TRAIN_WARMUP warm-up and TRAIN_STEPS timed steps
+    (finite, the median, the peak memory, no fused launch)."""
+    import copy
+    import math
+
+    import numpy as np
+    import torch
+    classes = cfg.model['cls_head']['num_classes']
+    batches = [(np.random.RandomState(seed).randint(0, 256, shape,
+                                                    dtype=np.uint8),
+                np.random.RandomState(1000 + seed).randint(0, classes,
+                                                           shape[0]))
+               for seed in range(TRAIN_WARMUP + TRAIN_STEPS)]
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    one = {}
+    try:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        for dtype in ('bfloat16', 'float32'):
+            twin = copy.deepcopy(model)
+            twin.dtype = getattr(torch, dtype)
+            m = _family_step(twin, cfg)(
+                *batches[0], torch.Generator(device='cuda').manual_seed(1))
+            one[dtype] = m['loss'].item()
+            del twin, m
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+    rel = abs(one['bfloat16'] - one['float32']) / abs(one['float32'])
+    step = _family_step(model, cfg)
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    before = _fused_total()
+    losses = [step(*b, gen)['loss'].item()
+              for b in batches[:TRAIN_WARMUP]]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    secs = []
+    for b in batches[TRAIN_WARMUP:]:
+        t0 = time.perf_counter()
+        losses.append(step(*b, gen)['loss'].item())
+        secs.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    fused = _fused_total() - before
+    med = statistics.median(secs)
+    print('family11: ' + json.dumps(dict(
+        case=name, kind='train_step', batch=list(shape),
+        dtype=str(model.compute_dtype).split('.')[-1], loss=losses,
+        step_ms=[s * 1e3 for s in secs], median_step_ms=med * 1e3,
+        clips_per_s=shape[0] / med, max_memory_allocated_gib=peak,
+        bf16_vs_fp32_loss=[one['bfloat16'], one['float32']],
+        loss_rel=rel, fused_launches=fused, card=card_line())))
+    require(all(math.isfinite(v) for v in losses),
+            f'{name}: train losses {losses}')
+    require(rel <= 2e-2, f'{name}: bf16 vs fp32 loss relative {rel}')
+    require(fused == 0, f'{name}: {fused} fused launches while training')
+    del step
+    torch.cuda.empty_cache()
+
+
+def _view_against_cpu(name, model, model_cfg, view, norm):
+    """One view through the card in bf16 against the same weights' fp32
+    forward on the CPU; the error must lie within 3e-2 of the CPU's
+    largest logit."""
+    import torch
+    from mvfnet_tpu_torch.engine.train_step import make_eval_step
+    from mvfnet_tpu_torch.models import build_recognizer
+    test_cfg = model.test_cfg
+    model.test_cfg = dict(average_clips=None)
+    try:
+        got = make_eval_step(model, norm_cfg=norm)(model, view).float().cpu()
+    finally:
+        model.test_cfg = test_cfg
+    cpu = build_recognizer(dict(model_cfg, dtype='float32'),
+                           test_cfg=dict(average_clips=None))
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    want = make_eval_step(cpu, norm_cfg=norm, device='cpu')(cpu, view)
+    err = float((got - want).abs().max())
+    tol = 3e-2 * float(want.abs().max())
+    require(bool(torch.isfinite(got).all()) and err <= tol,
+            f'{name}: card vs fp32 CPU logits of one view {err} > {tol}')
+    return dict(view_shape=list(view.shape), max_abs_err=err, tol=tol,
+                argmax_agree=bool((got.argmax(-1) == want.argmax(-1)).all()))
+
+
+def _family_eval(name, model, model_cfg, video, norm, expected):
+    """One case's eval pass: a warm-up, FAMILY_EVAL_RUNS timed calls (the
+    fused launches of each against ``expected``), a profiled call, and one
+    view against the fp32 CPU forward."""
+    import torch
+    from mvfnet_tpu_torch.engine.train_step import make_eval_step
+    model.eval()
+    step = make_eval_step(model, norm_cfg=norm)
+    scores = step(model, video)
+    require(bool(torch.isfinite(scores).all()),
+            f'{name}: non-finite eval scores')
+    torch.cuda.synchronize()
+    before = _launches_by_shape()
+    secs = []
+    for _ in range(FAMILY_EVAL_RUNS):
+        t0 = time.perf_counter()
+        step(model, video)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    launches = _launches_by_shape() - before
+    want = collections.Counter({k: v * FAMILY_EVAL_RUNS
+                                for k, v in expected.items()})
+    prof = device_profile(lambda: step(model, video))
+    require('busy_ms' in prof, f'{name} profile: {prof}')
+    one = _view_against_cpu(name, model, model_cfg,
+                            video[:, :video.shape[1] // VIEWS], norm)
+    med = statistics.median(secs)
+    print('family11: ' + json.dumps(dict(
+        case=name, kind='eval', video=list(video.shape),
+        dtype=str(model.compute_dtype).split('.')[-1], pass_ms=[
+            s * 1e3 for s in secs], videos_per_s=1 / med,
+        device_ms_per_video=prof['busy_ms'],
+        device_idle_share=prof['idle_share'],
+        fused_launches={'/'.join(map(str, k)): v
+                        for k, v in launches.items()},
+        fused_expected={'/'.join(map(str, k)): v for k, v in want.items()},
+        one_view_vs_cpu_fp32=one, card=card_line())))
+    print(f'family11 profile {name}: ' + json.dumps(prof))
+    require(launches == want, f'{name}: fused launches {dict(launches)}, '
+                              f'expected from the config {dict(want)}')
+    return launches
+
+
+def _family_2d():
+    """(b)-(d): each 2-D case's train step at the flagship's batch and a
+    dense-test video through its eval path; returns the fused launches by
+    case and shape."""
+    import numpy as np
+    import torch
+    video = np.random.RandomState(0).randint(
+        0, 256, (1, VIEWS * TRAIN_BATCH[1], CROP, CROP, 3), dtype=np.uint8)
+    launches = {}
+    for name in FAMILY_2D:
+        model_cfg, cfg = _family_model_cfg(name)
+        model = _family_model(model_cfg).to('cuda')
+        _family_train(name, model, cfg, TRAIN_BATCH)
+        launches[name] = _family_eval(
+            name, model, model_cfg, video,
+            dict(cfg.img_norm_cfg, device=True),
+            expected_fused(model_cfg, VIEWS * TRAIN_BATCH[1], CROP))
+        del model
+        torch.cuda.empty_cache()
+    return launches
+
+
+def _random_checkpoint(root, name, model_cfg):
+    import torch
+    path = os.path.join(root, f'{name}_random.pth')
+    torch.save(_family_model(model_cfg).state_dict(), path)
+    return path
+
+
+def _bninception(root):
+    """(a) the shipped BNInception config: its test CLI over
+    FAMILY_VIDEOS of phase 5's videos (25 segments x TenCrop), its train
+    step, its train CLI for 2 epochs of 2 iterations and a resume, and
+    ``convert_checkpoint`` of the seeded ``.pth`` scored again through the
+    test CLI. Returns the fused launches (none)."""
+    import math
+    import pickle
+    import re
+
+    import numpy as np
+    import torch
+    from mvfnet_tpu_torch.tools import convert_checkpoint
+    from mvfnet_tpu_torch.tools import test_recognizer as test_cli
+    from mvfnet_tpu_torch.tools import train_recognizer as train_cli
+    model_cfg, cfg = _family_model_cfg('bninception')
+    ckpt = _random_checkpoint(root, 'bninception', model_cfg)
+    ann = os.path.join(root, 'test_list_family.txt')
+    with open(ann, 'w') as f:
+        f.writelines(f'video_{i} {DATA_FRAMES} {i}\n'
+                     for i in range(FAMILY_VIDEOS))
+    config = write_config_3d(root, 'test_bninception', BNI_CONFIG, dict(
+        test=dict(ann_file=ann, data_root=root)),
+        ["compute_dtype = 'bfloat16'"])
+    views = 25 * 10
+    out = os.path.join(root, 'scores_bninception.pkl')
+    args = [config, ckpt, '--out', out]
+    before = _fused_total()
+    _quiet(test_cli.main, args)                              # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, text = _quiet(test_cli.main, args)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    with open(out, 'rb') as f:
+        rows = np.stack(pickle.load(f))
+    require(rows.shape == (FAMILY_VIDEOS, 400)
+            and bool(np.isfinite(rows).all())
+            and bool((np.abs(rows.sum(1) - 1) <= 1e-3).all()),
+            f'bninception: scores {rows.shape}, sums {rows.sum(1)}')
+    printed = dict(re.findall(r'^(Top-1|Top-5|Mean Class) Accuracy '
+                              r'= (\d+\.\d\d)$', text, re.M))
+    want = numpy_accuracy(rows, list(range(FAMILY_VIDEOS)))
+    require(printed == {k: f'{v * 100:.02f}' for k, v in zip(
+        ('Top-1', 'Top-5', 'Mean Class'), want)},
+        f'bninception: printed {printed}, numpy {want}')
+    prof = device_profile(lambda: _quiet(test_cli.main, args))
+    require('busy_ms' in prof, f'bninception profile: {prof}')
+    one = _one_view_against_cpu('bninception', config, ckpt)
+    msgpack = os.path.join(root, 'bninception_random.msgpack')
+    report = convert_checkpoint.main([config, ckpt, msgpack])
+    require(not (report['missing'] or report['unexpected']
+                 or report['mismatched']),
+            f'bninception convert_checkpoint report {report}')
+    out_mp = os.path.join(root, 'scores_bninception_msgpack.pkl')
+    _quiet(test_cli.main, [config, msgpack, '--out', out_mp])
+    with open(out_mp, 'rb') as f:
+        diff = float(np.abs(np.stack(pickle.load(f)) - rows).max())
+    require(diff <= DATA_TOL, f'bninception: .msgpack scores {diff} from '
+                              f'the .pth ones')
+    test_launches = _fused_total() - before
+    print('family11: ' + json.dumps(dict(
+        case='bninception', kind='test_cli', videos=FAMILY_VIDEOS,
+        views_per_video=views, pass_s=secs,
+        videos_per_s=FAMILY_VIDEOS / secs,
+        clips_per_s=FAMILY_VIDEOS * views / secs,
+        device_ms_per_video=prof['busy_ms'] / FAMILY_VIDEOS,
+        device_idle_share=prof['idle_share'],
+        msgpack_vs_pth_max_abs_diff=diff, fused_launches=test_launches,
+        one_view_vs_cpu_fp32=one, card=card_line())))
+    print('family11 profile bninception: ' + json.dumps(prof))
+
+    model = _family_model(model_cfg).to('cuda')
+    batch = (cfg.data['videos_per_gpu'], 3) + TRAIN_BATCH[2:]
+    _family_train('bninception', model, cfg, batch)
+    del model
+    torch.cuda.empty_cache()
+
+    train_ann = os.path.join(root, 'train_list_family.txt')
+    reps = 2 * cfg.data['videos_per_gpu'] // DATA_VIDEOS
+    with open(train_ann, 'w') as f:
+        f.writelines(f'video_{i} {DATA_FRAMES} {i}\n'
+                     for _ in range(reps) for i in range(DATA_VIDEOS))
+    train_config = write_config_3d(
+        root, 'train_bninception', BNI_CONFIG,
+        dict(train=dict(ann_file=train_ann, data_root=root)), [
+            "compute_dtype = 'bfloat16'", 'total_epochs = 2',
+            'resume_from = None', 'checkpoint_config = dict(interval=1)',
+            'log_config = dict(interval=1)'])
+    work = os.path.join(root, 'train_bninception')
+    before = _fused_total()
+    t0 = time.perf_counter()
+    loop = train_cli.main([train_config, '--work_dir', work])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    iters, _ = train_log(work)
+    per_epoch = loop.iters_per_epoch
+    require(per_epoch == 2 and len(iters) == 4 == loop.step,
+            f'bninception train CLI: {per_epoch} iterations an epoch, '
+            f'{len(iters)} logged, {loop.step} steps')
+    require(all(math.isfinite(v) for r in iters for v in r.values()),
+            f'bninception train CLI: non-finite metrics {iters}')
+    again = train_cli.main([train_config, '--work_dir',
+                            os.path.join(root, 'resumed_bninception'),
+                            '--resume_from',
+                            os.path.join(work, 'epoch_1.pth')])
+    tail, _ = train_log(os.path.join(root, 'resumed_bninception'))
+    rel = [abs(a['loss'] - b['loss']) / abs(b['loss'])
+           for a, b in zip(tail, iters[per_epoch:])]
+    require(again.step == 4 and len(tail) == per_epoch
+            and max(rel) <= RESUME_TOL,
+            f'bninception train CLI: resumed {again.step} steps, losses '
+            f'{rel} relative')
+    train_launches = _fused_total() - before
+    require(test_launches == train_launches == 0,
+            f'bninception: {test_launches} + {train_launches} fused '
+            f'launches')
+    secs = [r['s'] for r in iters[1:]]
+    print('family11: ' + json.dumps(dict(
+        case='bninception', kind='train_cli', batch=list(batch),
+        iterations=len(iters), run_s=run_s, s_per_iter=secs,
+        median_s_per_iter=statistics.median(secs),
+        loss=[r['loss'] for r in iters],
+        resumed_loss=[r['loss'] for r in tail], resume_loss_rel=rel,
+        fused_launches=train_launches, card=card_line())))
+    del loop, again
+    torch.cuda.empty_cache()
+    return {'bninception_test_cli': collections.Counter(),
+            'bninception_train_cli': collections.Counter()}
+
+
+def _i3d_nonlocal(root):
+    """(e) the shipped I3D config with non-local blocks after every block
+    of stages 2-3 (``nonlocal_stages=(1, 2)``, the default
+    ``nonlocal_freq``): one video of its test pipeline (10 clips x 3 crops
+    of 32 frames) through the eval step, and a train step at its batch.
+    (f) ``RecognizerC2D`` (ResNet-50 without inflation on 8-frame clips):
+    one forward against the fp32 CPU forward."""
+    import numpy as np
+    import torch
+    from mvfnet_tpu_torch.config import Config
+    from mvfnet_tpu_torch.data import build_dataset, device_norm_cfg
+    from mvfnet_tpu_torch.engine.train_step import make_eval_step
+    ann = os.path.join(root, 'test_list_family_3d.txt')
+    with open(ann, 'w') as f:
+        f.write(f'video_0 {DATA_FRAMES} 0\n')
+    config = write_config_3d(root, 'i3d_nonlocal', CONFIGS_3D['i3d'], dict(
+        test=dict(ann_file=ann, data_root=root)), [
+        'model = dict(backbone=dict(nonlocal_stages=(1, 2), '
+        'nonlocal_cfg=dict()))'])
+    cfg = Config.fromfile(config)
+    model_cfg = dict(cfg.model, dtype=cfg.compute_dtype)
+    model = _family_model(model_cfg).to('cuda')
+    blocks = sum(1 for n, _ in model.named_modules()
+                 if n.endswith('nonlocal_block'))
+    require(blocks == 4 + 6, f'i3d_nonlocal: {blocks} non-local blocks')
+    norm = device_norm_cfg(cfg.data['test']['pipeline'])
+    video = np.asarray(build_dataset(dict(cfg.data['test']))[0][
+        'img_group'])[None]
+    launches = {'i3d_nonlocal': _family_eval(
+        'i3d_nonlocal', model, model_cfg, video, norm, {})}
+    shape = (cfg.data['videos_per_gpu'],) + _train_shape_3d(cfg)[1:]
+    model.train()
+    _family_train('i3d_nonlocal', model, cfg, shape)
+    del model
+    torch.cuda.empty_cache()
+
+    c2d_cfg = dict(
+        type='RecognizerC2D', modality='RGB', dtype='bfloat16',
+        backbone=dict(type='ResNet_I3D', depth=50, out_indices=(3,),
+                      inflate_freq=0, conv1_kernel=(1, 7, 7),
+                      conv1_stride_t=1, pool1_stride_t=1, no_pool2=True,
+                      norm_eval=False),
+        cls_head=dict(type='I3DClsHead', in_channels=2048, num_classes=400,
+                      dropout_ratio=0.5))
+    model = _family_model(c2d_cfg).to('cuda').eval()
+    clip = np.random.RandomState(3).randint(
+        0, 256, (1, 1) + TRAIN_BATCH[1:], dtype=np.uint8)
+    before = _fused_total()
+    t0 = time.perf_counter()
+    scores = make_eval_step(model, norm_cfg=norm)(model, clip)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    one = _view_against_cpu('c2d', model, c2d_cfg, clip, norm)
+    launches['c2d'] = collections.Counter()
+    fused = _fused_total() - before
+    print('family11: ' + json.dumps(dict(
+        case='c2d', kind='forward', clip=list(clip.shape),
+        scores=list(scores.shape), forward_ms=secs * 1e3,
+        fused_launches=fused, one_view_vs_cpu_fp32=one, card=card_line())))
+    require(fused == 0, f'c2d: {fused} fused launches')
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _validate(root, ann):
+    """(g) ``validate_k400`` on phase 5's videos with the flagship's seeded
+    ``.pth`` (phase 5's): its JSON line, its fused launches."""
+    from mvfnet_tpu_torch.config import Config
+    from mvfnet_tpu_torch.tools import validate_k400
+    out = os.path.join(root, 'verdict.json')
+    before = _launches_by_shape()
+    t0 = time.perf_counter()
+    code, _ = _quiet(validate_k400.main, [
+        '--checkpoint', os.path.join(root, 'mvf_r50_random.pth'),
+        '--ann', ann, '--data-root', root, '--config', CONFIG,
+        '--out', out])
+    secs = time.perf_counter() - t0
+    launches = _launches_by_shape() - before
+    with open(out) as f:
+        verdict = json.load(f)
+    print(json.dumps(verdict))
+    want = expected_fused(dict(Config.fromfile(CONFIG).model),
+                          VIEWS * TRAIN_BATCH[1], CROP, DATA_VIDEOS)
+    print('family11: ' + json.dumps(dict(
+        case='validate_k400', kind='runbook', videos=DATA_VIDEOS,
+        pass_s=secs, videos_per_s=DATA_VIDEOS / secs, exit_code=code,
+        top1=verdict['top1'], fused_launches={
+            '/'.join(map(str, k)): v for k, v in launches.items()},
+        card=card_line())))
+    require(verdict['n_videos'] == DATA_VIDEOS
+            and verdict['expected_top1'] == 76.0
+            and code == (1 if verdict['pass'] is False else 0),
+            f'validate_k400: {verdict}, exit code {code}')
+    require(launches == want, f'validate_k400: fused launches '
+                              f'{dict(launches)}, expected {dict(want)}')
+    return {'validate_k400': launches}
+
+
+def phase_family(root, ann):
+    """Phase 11, the other 2-D families, I3D's non-local blocks,
+    ``RecognizerC2D`` and the user tools, in ``root`` beside phase 5's
+    videos: returns the fused launches by case and shape."""
+    t0 = time.perf_counter()
+    launches = _bninception(root)
+    launches.update(_family_2d())
+    launches.update(_i3d_nonlocal(root))
+    launches.update(_validate(root, ann))
+    print(f'phase 11: {time.perf_counter() - t0:.3f} s')
+    return launches
+
 
 def phase_rawframes():
     """Phases 5-8 on one rawframe dataset in a temporary directory, then
-    phase 9 on the same frames as video files and phase 10 on the same
-    frames again; returns their fused-kernel launches by case (and shape
-    but in phase 10, which counts them all)."""
+    phase 9 on the same frames as video files and phases 10 and 11 on the
+    same frames again; returns their fused-kernel launches by case (and
+    shape but in phase 10, which counts them all)."""
     import tempfile
 
     import cv2
@@ -2632,8 +3185,9 @@ def phase_rawframes():
         dist_launches = phase_dist(root, ann)
         video_launches = phase_video(root)
         launches_3d = phase_3d(root)
+        launches_2d = phase_family(root, ann)
         return (data_launches, train_launches, feature_launches,
-                dist_launches, video_launches, launches_3d)
+                dist_launches, video_launches, launches_3d, launches_2d)
 
 
 def main():
@@ -2663,7 +3217,8 @@ def main():
         launches = phase_slice()
         phase_train()
         (data_launches, train_launches, feature_launches,
-         dist_launches, video_launches, launches_3d) = phase_rawframes()
+         dist_launches, video_launches, launches_3d,
+         launches_2d) = phase_rawframes()
         for r in records:
             key = (r['dtype'],) + tuple(r['shape'])
             r['launches'] = launches.get(key, 0)
@@ -2678,6 +3233,8 @@ def main():
                                    for case, n in video_launches.items()}
             # the 3-D paths launch no fused kernel at any shape
             r['launches_3d'] = dict(launches_3d)
+            r['launches_2d'] = {case: n.get(key, 0)
+                                for case, n in launches_2d.items()}
     except SmokeFailure as e:
         print(f'chip_smoke: FAILED: {e}', file=sys.stderr)
         return 1

@@ -12,7 +12,10 @@ names) and with ``torch.optim.SGD`` in place of an optax chain:
   misses a residual downsample's norm (``downsample.1.*``, the avg_down
   shortcut's too): that norm gets full weight decay, as in the reference;
   X3D's temporal stem norm ``conv1_3x1.1.*``, which the regex misses too,
-  is a norm parameter, as the JAX package labels its ``conv1_3x1_bn``
+  is a norm parameter, as the JAX package labels its ``conv1_3x1_bn``, and
+  so are MobileNetV2's norms at d-li14's Sequential indices
+  (``features.0.1``, ``features.K.conv.{1,4,7}``, ``conv.1``), the JAX
+  package's ``*_bn`` modules
 - frozen parameters: in no group, so no update, no momentum and no decay;
   they keep their gradients, and the clip counts them, as the JAX chain
   clips before it freezes
@@ -31,8 +34,13 @@ from typing import Any, Callable, Dict, Iterable, Optional, Sequence
 
 import torch
 
-_NORM = re.compile(r'(bn|gn)(\d+)?.(weight|bias)|\.conv1_3x1\.1\.')
+_NORM = re.compile(r'(bn|gn)(\d+)?.(weight|bias)|\.conv1_3x1\.1\.'
+                   r'|\.features\.0\.1\.|\.features\.\d+\.conv\.[147]\.'
+                   r'|^backbone\.conv\.1\.')
 NORM_FROZEN = '__norm_frozen__:'
+# a 2-D non-local block, which the JAX package keeps beside its stage's
+# blocks (``nonlocal{i}_{j}``), outside the stage's frozen prefix
+_NONLOCAL_2D = re.compile(r'backbone\.layer\d+\.\d+\.nl\.')
 
 
 def make_step_lr_schedule(base_lr: float,
@@ -99,13 +107,16 @@ def param_label(name: str, frozen_prefixes: Sequence[str] = ()) -> str:
     """'frozen' | 'norm' | 'bias' | 'default' for a parameter name. A prefix
     ``NORM_FROZEN + root`` freezes every norm parameter under ``root``. The
     norm test is the reference's regex (``codes/core/train.py:143``), quirk
-    included: ``downsample.1.weight`` has no 'bn' in it."""
+    included: ``downsample.1.weight`` has no 'bn' in it. A stage's prefix
+    leaves its 2-D non-local blocks alone, as the JAX package's does."""
     norm = _NORM.search(name) is not None
     for pref in frozen_prefixes:
         if pref.startswith(NORM_FROZEN):
             if norm and name.startswith(pref[len(NORM_FROZEN):]):
                 return 'frozen'
-        elif name.startswith(pref):
+        elif name.startswith(pref) and not (
+                pref.startswith('backbone.layer')
+                and _NONLOCAL_2D.match(name)):
             return 'frozen'
     if norm:
         return 'norm'

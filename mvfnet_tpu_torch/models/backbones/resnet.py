@@ -4,19 +4,23 @@ ResNet-18/34 (``BasicBlock``) and 50/101/152 (``Bottleneck``). Module names
 follow the reference torch ResNet, so its checkpoints load as they are:
 ``conv1``, ``bn1``, ``layer{i}.{j}.{conv1,bn1,conv2,bn2,conv3,bn3,
 downsample.{0,1}}``, and an MVF-wrapped ``conv1`` as ``conv1.{net,
-shift_conv,h_conv,w_conv,bn}``; the deep stem is ``stem_conv{1,2,3}``,
-``stem_bn{1,2}`` and ``bn1``, as in the JAX package. The avg_down shortcut
+shift_conv,h_conv,w_conv,bn}``, CoST in place of conv2 as
+``conv2.{shift_conv,bn}``, and a block a non-local block follows as
+``layer{i}.{j}.{block,nl}`` (the reference's ``NL3DWrapper``); the deep
+stem is ``stem_conv{1,2,3}``, ``stem_bn{1,2}`` and ``bn1``, as in the JAX
+package. The avg_down shortcut
 keeps the names ``downsample.{0,1}`` (conv, norm): its pool has no
 parameters and runs inside ``Downsample.forward``. The JAX package's TPU
 re-layouts of conv1 (``_SplitPointwiseConv``) and of the stem
 (``_SpaceToDepthStem``) are plain convs here; the same parameters load.
 
 In ``eval()`` with no gradient recorded, each stride-1 bottleneck with
-BatchNorm and without a downsample or temporal module folds its three
-BatchNorms into the conv weights and runs as one fused call,
+BatchNorm and without a downsample or temporal module (MVF, CoST) folds
+its three BatchNorms into the conv weights and runs as one fused call,
 ``ops.fused_block.bottleneck_eval``: the hand-written CUDA kernel on the
-card, its plain version on the CPU. BasicBlocks, GroupNorm blocks and avd
-blocks take the plain path, as in the JAX package.
+card, its plain version on the CPU; a block a non-local block follows
+fuses too. BasicBlocks, GroupNorm blocks and avd blocks take the plain
+path, as in the JAX package.
 
 ``with_cp`` (activation checkpointing) runs each res-stage through
 ``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)`` while the
@@ -44,7 +48,10 @@ from ..builder import BACKBONES
 from ..common import (BatchNorm, avg_pool_torch, conv2d,
                       frozen_norm_statistics, lecun_normal_, make_norm,
                       max_pool_same_as_torch, to_nchw, to_nhwc)
+from ..modules.cost import CoST
 from ..modules.mvf import MVF
+from ..modules.nonlocal_attention import (LocalAttention, NonLocal2D,
+                                          nonlocal_block_indices)
 
 
 class Downsample(nn.Sequential):
@@ -68,16 +75,21 @@ class Downsample(nn.Sequential):
         return super().forward(x)
 
 
+def _is_cost(temporal_cfg: Optional[Dict]) -> bool:
+    return bool(temporal_cfg) and temporal_cfg.get('type') == 'CoST'
+
+
 def _wrap_temporal(conv: nn.Module, temporal_cfg: Optional[Dict],
                    inplanes: int) -> nn.Module:
     """``conv`` wrapped in the temporal module (MVF), the reference's
-    ``blocks[i].conv1 = MVF(b.conv1, ...)``."""
-    if temporal_cfg is None:
+    ``blocks[i].conv1 = MVF(b.conv1, ...)``; CoST leaves conv1 alone (it
+    replaces a bottleneck's conv2)."""
+    if temporal_cfg is None or _is_cost(temporal_cfg):
         return conv
     cfg = dict(temporal_cfg)
     kind = cfg.pop('type')
     if kind != 'MVF':
-        raise NotImplementedError(f'temporal module {kind} is not ported yet')
+        raise KeyError(f'Unknown temporal module {kind}')
     return MVF(conv, in_channels=inplanes, **cfg)
 
 
@@ -95,6 +107,10 @@ class BasicBlock(nn.Module):
         super().__init__()
         if style not in ('pytorch', 'caffe'):
             raise ValueError(f'style {style!r}')
+        if _is_cost(temporal_cfg):
+            raise NotImplementedError(
+                'CoST in a BasicBlock: the reference places CoST only in '
+                'bottlenecks (ROADMAP.md, section C)')
         self.conv1 = _wrap_temporal(
             conv2d(inplanes, planes, 3, stride=stride, padding=dilation,
                    dilation=dilation), temporal_cfg, inplanes)
@@ -113,8 +129,9 @@ class BasicBlock(nn.Module):
 
 
 class Bottleneck(nn.Module):
-    """ResNet Bottleneck; ``temporal_cfg`` wraps conv1 in a temporal module
-    (MVF), the reference's ``blocks[i].conv1 = MVF(b.conv1, ...)``.
+    """ResNet Bottleneck; ``temporal_cfg`` wraps conv1 in MVF, the
+    reference's ``blocks[i].conv1 = MVF(b.conv1, ...)``, or replaces conv2
+    with CoST.
 
     ``avd`` (with ``stride > 1`` only): the 3x3 conv keeps stride 1 and an
     ``AvgPool2d(3, stride, padding=1)`` strides instead, after the second
@@ -143,8 +160,12 @@ class Bottleneck(nn.Module):
             conv2d(inplanes, planes, 1, stride=conv1_stride), temporal_cfg,
             inplanes)
         self.bn1 = make_norm(norm_cfg, planes)
-        self.conv2 = conv2d(planes, planes, 3, stride=conv2_stride,
-                            padding=dilation, dilation=dilation)
+        if _is_cost(temporal_cfg):
+            # CoST replaces conv2 (the reference's make_CoST)
+            self.conv2 = CoST(temporal_cfg['n_segment'], planes)
+        else:
+            self.conv2 = conv2d(planes, planes, 3, stride=conv2_stride,
+                                padding=dilation, dilation=dilation)
         self.bn2 = make_norm(norm_cfg, planes)
         self.conv3 = conv2d(planes, planes * self.expansion, 1)
         self.bn3 = make_norm(norm_cfg, planes * self.expansion)
@@ -156,7 +177,8 @@ class Bottleneck(nn.Module):
     @property
     def fusable(self) -> bool:
         """Shapes the fused eval kernel computes: stride 1 (so no avd), no
-        downsample, no temporal module, pytorch style, dilation 1, and
+        downsample, no temporal module (MVF or CoST), pytorch style,
+        dilation 1, and
         BatchNorms whose running statistics fold into the weights."""
         return (self.stride == 1 and self.downsample is None
                 and not self.has_temporal and self.style == 'pytorch'
@@ -229,8 +251,12 @@ class ResNet(nn.Module):
     state-dict names.
 
     ``temporal_cfg``: e.g. ``dict(type='MVF', n_segment=8, alpha=0.125,
-    mode='THW')``; ``temporal_freq``: per-stage 0/1 mask (the reference's
-    ``mvf_freq``), every block of a selected stage gets the module.
+    mode='THW')`` or ``dict(type='CoST', n_segment=8)``;
+    ``temporal_freq``: per-stage 0/1 mask (the reference's ``mvf_freq`` /
+    ``shift_freq``): MVF takes every block of a selected stage, CoST every
+    block after the first. ``nonlocal_cfg=dict(n_segment=T)`` puts a
+    non-local block after layer2's and layer3's blocks that
+    ``nonlocal_block_indices`` picks (2 and 3 a stage).
     ``avg_down``, ``avd``/``avd_first`` (Bottleneck only), ``deep_stem``
     with ``stem_width`` and ``norm_cfg=dict(type='GN', num_groups=G)`` are
     the reference's options; ``with_cp`` checkpoints each res-stage while
@@ -262,6 +288,7 @@ class ResNet(nn.Module):
                  stem_s2d: bool = True,
                  temporal_cfg: Optional[Dict] = None,
                  temporal_freq: Sequence[int] = (0, 0, 0, 0),
+                 nonlocal_cfg: Optional[Dict] = None,
                  pretrained: Optional[str] = None, with_cp: bool = False):
         super().__init__()
         if depth not in self.arch_settings:
@@ -294,29 +321,42 @@ class ResNet(nn.Module):
             planes = 64 * 2 ** i
             stage_temporal = (temporal_cfg
                               if temporal_cfg and temporal_freq[i] else None)
+            nl_blocks = (nonlocal_block_indices(num_blocks, 2 if i == 1
+                                                else 3)
+                         if nonlocal_cfg and i in (1, 2) else ())
             blocks = []
             for j in range(num_blocks):
                 stride = strides[i] if j == 0 else 1
                 with_ds = j == 0 and (strides[i] != 1 or
                                       inplanes != planes * block_cls.expansion)
-                blocks.append(block_cls(
+                # CoST skips a stage's first block; MVF takes every block
+                block = block_cls(
                     inplanes, planes, stride=stride, dilation=dilations[i],
                     with_downsample=with_ds, style=style, norm_cfg=norm_cfg,
-                    avg_down=avg_down, temporal_cfg=stage_temporal,
-                    **block_opts))
+                    avg_down=avg_down,
+                    temporal_cfg=(None if j == 0 and _is_cost(stage_temporal)
+                                  else stage_temporal),
+                    **block_opts)
                 inplanes = planes * block_cls.expansion
+                if j in nl_blocks:
+                    block = NonLocal2D(block, inplanes,
+                                       nonlocal_cfg['n_segment'])
+                blocks.append(block)
             self.add_module(f'layer{i + 1}', nn.Sequential(*blocks))
 
     def init_weights(self, generator: torch.Generator) -> None:
         """JAX-package init: lecun-normal convs, norm gamma 1 beta 0, MVF
-        taps N(0, sqrt(2/(3*cs)))."""
+        taps N(0, sqrt(2/(3*cs))), CoST kernels N(0, sqrt(2/(9*C))), the
+        non-local blocks' lecun-normal convs with zero biases."""
         for m in self.modules():
             if isinstance(m, nn.Conv2d):
                 lecun_normal_(m.weight, generator)
             elif isinstance(m, (nn.BatchNorm2d, nn.GroupNorm)):
                 m.reset_parameters()
-            elif isinstance(m, MVF):
+            elif isinstance(m, (MVF, CoST)):
                 m.reset_taps(generator)
+            elif isinstance(m, LocalAttention):
+                m.reset_parameters(generator)
 
     def train(self, mode: bool = True):
         """``norm_eval`` keeps every BatchNorm (MVF's and the deep stem's

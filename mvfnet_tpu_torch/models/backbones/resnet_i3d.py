@@ -22,8 +22,11 @@ package's for every conv, and a 2-D checkpoint is inflated by the importer
 (``utils.checkpoint.import_torch_state_dict``, ``w3d[t] = w2d / kT``).
 ``stem_s2d`` selects the JAX package's space-to-depth form of the stem
 conv, a TPU re-layout with the same parameter and the same values: the port
-runs the plain conv. Non-local blocks (``nonlocal_cfg``) and the int8 path
-(``quant``) raise.
+runs the plain conv. ``nonlocal_cfg`` puts a non-local block
+(``modules.nonlocal_attention.build_nonlocal_block``) after each
+bottleneck that ``nonlocal_stages`` and ``nonlocal_freq`` pick, as
+``layer{i}.{j}.nonlocal_block``; a ``BasicBlock3D`` accepts and ignores
+it, as in the JAX module. The int8 path (``quant``) raises.
 """
 
 from __future__ import annotations
@@ -38,15 +41,13 @@ from torch.utils.checkpoint import checkpoint
 from ..builder import BACKBONES
 from ..common import (BatchNorm, avg_pool3d, conv3d, lecun_normal_,
                       make_norm, max_pool3d)
+from ..modules.nonlocal_attention import build_nonlocal_block
 from .resnet import _recompute_contexts
 
 
-def refuse_unported(nonlocal_cfg=None, quant=None) -> None:
+def refuse_unported(quant=None) -> None:
     """The 3-D backbones' options whose modules the port does not have
     yet."""
-    if nonlocal_cfg is not None:
-        raise NotImplementedError('non-local blocks are not ported yet '
-                                  '(ROADMAP.md, A12)')
     if quant:
         raise NotImplementedError('quantized backbones are not ported yet '
                                   '(ROADMAP.md, A14)')
@@ -82,7 +83,8 @@ class Bottleneck3D(nn.Module):
     puts them (none when ``if_inflate`` is off, and then no temporal
     stride). ``avd`` (stride > 1 only): the conv keeps stride 1 and an
     ``AvgPool3d((1, 3, 3), (1, s, s), (0, 1, 1))`` strides after the second
-    relu, or after the first with ``avd_first``."""
+    relu, or after the first with ``avd_first``. ``nonlocal_cfg`` adds a
+    non-local block after the residual's relu."""
     expansion = 4
 
     def __init__(self, inplanes: int, planes: int, spatial_stride: int = 1,
@@ -90,10 +92,14 @@ class Bottleneck3D(nn.Module):
                  with_downsample: bool = False, style: str = 'pytorch',
                  if_inflate: bool = True, inflate_style: str = '3x1x1',
                  norm_cfg: Optional[Dict] = None, avg_down: bool = False,
-                 avd: bool = False, avd_first: bool = False):
+                 avd: bool = False, avd_first: bool = False,
+                 nonlocal_cfg: Optional[Dict] = None):
         super().__init__()
         if style not in ('pytorch', 'caffe'):
             raise ValueError(f'style {style!r}')
+        self.nonlocal_block = (build_nonlocal_block(dict(
+            nonlocal_cfg, in_channels=planes * self.expansion))
+            if nonlocal_cfg is not None else None)
         self.avd = avd and spatial_stride > 1
         self.avd_first = avd_first
         self.spatial_stride = spatial_stride
@@ -136,7 +142,12 @@ class Bottleneck3D(nn.Module):
             out = self._avd(out)
         out = self.bn3(self.conv3(out))
         identity = x if self.downsample is None else self.downsample(x)
-        return torch.relu(out + identity)
+        out = torch.relu(out + identity)
+        if self.nonlocal_block is not None:
+            # NCTHW channels_last_3d <-> the module's NTHWC
+            out = self.nonlocal_block(out.permute(0, 2, 3, 4, 1)).permute(
+                0, 4, 1, 2, 3)
+        return out
 
 
 class BasicBlock3D(nn.Module):
@@ -150,7 +161,8 @@ class BasicBlock3D(nn.Module):
                  with_downsample: bool = False, style: str = 'pytorch',
                  if_inflate: bool = True, inflate_style: str = '3x1x1',
                  norm_cfg: Optional[Dict] = None, avg_down: bool = False,
-                 avd: bool = False, avd_first: bool = False):
+                 avd: bool = False, avd_first: bool = False,
+                 nonlocal_cfg: Optional[Dict] = None):
         super().__init__()
         ss, ts, d = spatial_stride, temporal_stride, dilation
         k = (3, 3, 3) if if_inflate else (1, 3, 3)
@@ -189,12 +201,15 @@ def per_block(freq: Union[int, Sequence], stages: int) -> list:
 def make_res_layer(block_cls, inplanes: int, planes: int, num_blocks: int,
                    spatial_stride: int, temporal_stride: int, dilation: int,
                    inflate: Union[int, Sequence[int]], lateral_in: int = 0,
+                   nonlocal_cfgs: Optional[Sequence[Optional[Dict]]] = None,
                    **block_opts) -> Tuple[nn.Sequential, int]:
     """One res-stage: the first block strides and projects the shortcut
     when it changes the shape (``lateral_in`` extra input channels come
-    from a SlowFast lateral); returns the stage and its output channels."""
+    from a SlowFast lateral), block j gets ``nonlocal_cfgs[j]``; returns
+    the stage and its output channels."""
     if isinstance(inflate, int):
         inflate = (inflate,) * num_blocks
+    nonlocal_cfgs = nonlocal_cfgs or (None,) * num_blocks
     blocks = []
     for j in range(num_blocks):
         cur_in = inplanes + (lateral_in if j == 0 else 0)
@@ -205,7 +220,8 @@ def make_res_layer(block_cls, inplanes: int, planes: int, num_blocks: int,
             cur_in, planes, spatial_stride=ss,
             temporal_stride=temporal_stride if j == 0 else 1,
             dilation=dilation, with_downsample=with_ds,
-            if_inflate=inflate[j] == 1, **block_opts))
+            if_inflate=inflate[j] == 1, nonlocal_cfg=nonlocal_cfgs[j],
+            **block_opts))
         inplanes = planes * block_cls.expansion
     return nn.Sequential(*blocks), inplanes
 
@@ -275,7 +291,7 @@ class ResNet_I3D(nn.Module):
         super().__init__()
         if depth not in ARCH_SETTINGS:
             raise KeyError(f'invalid depth {depth} for resnet_i3d')
-        refuse_unported(nonlocal_cfg, quant)
+        refuse_unported(quant)
         block_cls, stage_blocks = ARCH_SETTINGS[depth]
         self.num_stages = num_stages
         self.out_indices = tuple(out_indices)
@@ -302,14 +318,20 @@ class ResNet_I3D(nn.Module):
                       (pool1_stride_t, pool1_stride_s, pool1_stride_s),
                       (pool1_kernel_t // 2, 1, 1))
         inflate = per_block(inflate_freq, 4)
+        nonlocal_freq = per_block(nonlocal_freq, 4)
         block_opts = dict(style=style, inflate_style=inflate_style,
                           norm_cfg=norm_cfg, avg_down=avg_down, avd=avd,
                           avd_first=avd_first)
         for i, num_blocks in enumerate(stage_blocks[:num_stages]):
+            nl = nonlocal_freq[i]
+            if isinstance(nl, int):
+                nl = (nl,) * num_blocks
+            nl_cfg = nonlocal_cfg if i in nonlocal_stages else None
             layer, inplanes = make_res_layer(
                 block_cls, inplanes, 64 * 2 ** i, num_blocks,
                 spatial_strides[i], temporal_strides[i], dilations[i],
-                inflate[i], **block_opts)
+                inflate[i], nonlocal_cfgs=[nl_cfg if f == 1 else None
+                                           for f in nl], **block_opts)
             self.add_module(f'layer{i + 1}', layer)
 
     init_weights = init_weights_3d

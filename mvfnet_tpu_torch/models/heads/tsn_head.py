@@ -12,8 +12,13 @@ With ``extract_feat`` the head returns the pooled features, ``(M', C)`` or
 Dropout acts only in train mode on the standard path, with the mask drawn
 from the caller's generator (``flax.linen.Dropout`` semantics: keep with
 probability 1-p, scale the kept by 1/(1-p)). The loss is cross-entropy in
-at least f32. Only the average is ported (``spatial_type='avg'``, avg
-consensus).
+at least f32. ``spatial_type`` pools the standard path's frames by 'avg'
+or 'max'. The consensus is the average, or a TRN (``consensus_cfg`` type
+'TRN' or 'TRNmultiscale' with its ``num_frames``): ``new_fc`` then
+projects to 256 and the relation module, ``segmental_consensus``, scores
+the segments' embeddings (on the fcn path the head returns the 256-wide
+projection, as the JAX head does). The multiscale module takes the
+deterministic pick of subsets here, as the JAX train step does.
 """
 
 from __future__ import annotations
@@ -25,7 +30,10 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..builder import HEADS
-from .consensus import SimpleConsensus
+from .consensus import SimpleConsensus, return_trn
+
+_TRN = ('TRN', 'TRNmultiscale')
+_TRN_DIM = 256
 
 
 @HEADS.register_module
@@ -39,17 +47,31 @@ class TSNClsHead(nn.Module):
                  init_std: float = 0.001, fcn_testing: bool = False,
                  extract_feat: bool = False):
         super().__init__()
-        ctype = (consensus_cfg or {'type': 'avg'})['type']
-        if ctype != 'avg':
-            raise NotImplementedError(f'consensus {ctype!r} is not ported yet')
-        if spatial_type != 'avg':
-            raise NotImplementedError(
-                f'spatial_type {spatial_type!r} is not ported yet')
+        cfg = dict(consensus_cfg or {'type': 'avg'})
+        self.consensus_type = cfg['type']
+        if spatial_type not in ('avg', 'max'):
+            raise ValueError(spatial_type)
+        self.spatial_type = spatial_type
         self.dropout_ratio = dropout_ratio
         self.init_std = init_std
         self.extract_feat = extract_feat
-        self.new_fc = nn.Linear(in_channels, num_classes)
-        self.consensus = SimpleConsensus('avg', dim=1)
+        self.num_classes = num_classes
+        self.num_frames = cfg.get('num_frames')
+        trn = self.consensus_type in _TRN
+        self.new_fc = nn.Linear(in_channels, _TRN_DIM if trn else num_classes)
+        if trn:
+            if not self.num_frames:
+                raise ValueError(
+                    f'consensus {self.consensus_type} needs num_frames in '
+                    'consensus_cfg: the port sizes its relation MLPs when it '
+                    'builds the head (the JAX head sizes them from its first '
+                    "call's segments)")
+            self.segmental_consensus = return_trn(
+                self.consensus_type, _TRN_DIM, self.num_frames, num_classes)
+        elif self.consensus_type == 'avg':
+            self.segmental_consensus = SimpleConsensus('avg', dim=1)
+        else:
+            raise NotImplementedError(self.consensus_type)
 
     def init_weights(self, generator: torch.Generator) -> None:
         with torch.no_grad():
@@ -57,6 +79,8 @@ class TSNClsHead(nn.Module):
                 self.new_fc.weight.shape, generator=generator)
                 * self.init_std)
             self.new_fc.bias.zero_()
+        if self.consensus_type in _TRN:
+            self.segmental_consensus.reset_parameters(generator)
 
     def fc(self, feat: torch.Tensor) -> torch.Tensor:
         """The FC in the features' dtype (fp32 params cast)."""
@@ -89,12 +113,14 @@ class TSNClsHead(nn.Module):
         if x.ndim == 5:
             feat = x.mean(dim=(1, 2, 3))
             return feat if self.extract_feat else self.fc(feat)
-        feat = self.dropout(x.mean(dim=(1, 2)), generator)
+        pooled = (x.mean(dim=(1, 2)) if self.spatial_type == 'avg'
+                  else x.amax(dim=(1, 2)))
+        feat = self.dropout(pooled, generator)
         if self.extract_feat:
             return feat
         score = self.fc(feat)
         score = score.reshape((-1, num_seg) + score.shape[1:])
-        return self.consensus(score)[:, 0]
+        return self.segmental_consensus(score)[:, 0]
 
     @staticmethod
     def loss(cls_score: torch.Tensor,

@@ -2,8 +2,11 @@
 
 Train path: ``(B, S, H, W, C)`` folds to ``(B*S, ...)`` through the
 backbone in train mode, the head averages the scores over
-``S // temporal_pool`` segments and returns its cross-entropy loss for the
-flattened labels (the dropout mask from the caller's generator).
+``S // temporal_pool`` segments (or relates them, with a TRN head) and
+returns its cross-entropy loss for the flattened labels (the dropout mask
+from the caller's generator). The backbone config takes ``module_cfg``
+(MVF, CoST, or MVF / TSM in MobileNetV2) and ``nonlocal_cfg`` as the JAX
+package's ``_prepare_backbone_cfg`` turns them.
 
 Test path: every crop*clip*frame of a ``(B, S, H, W, C)`` channels-last
 video goes through the backbone as one batch; with ``fcn_testing`` the
@@ -30,21 +33,32 @@ from ..common import to_nhwc
 def _prepare_backbone_cfg(backbone: Dict, module_cfg: Optional[Dict],
                           modality: str,
                           nonlocal_cfg: Optional[Dict] = None) -> Dict:
-    """Turn the reference's (backbone, module_cfg, modality) surgery inputs
-    into one declarative backbone config."""
+    """Turn the reference's (backbone, module_cfg, modality, nonlocal_cfg)
+    surgery inputs into one declarative backbone config, as the JAX
+    package does: MVF and CoST per stage (``mvf_freq``, ``shift_freq``),
+    MVF or TSM in MobileNetV2's expanding identity blocks (no stage
+    mask)."""
     backbone = dict(backbone)
     if nonlocal_cfg:
-        raise NotImplementedError('non-local blocks are not ported yet')
+        backbone['nonlocal_cfg'] = dict(nonlocal_cfg)
     if module_cfg:
         module_cfg = dict(module_cfg)
         mtype = module_cfg.pop('type')
-        if mtype != 'MVF':
-            raise NotImplementedError(f'module type {mtype} is not ported yet')
-        freq = module_cfg.pop('mvf_freq', (1, 1, 1, 1))
-        for k in ('place', 'temporal_pool', 'two_path'):
-            module_cfg.pop(k, None)
-        backbone['temporal_cfg'] = dict(type=mtype, **module_cfg)
-        backbone['temporal_freq'] = tuple(freq)
+        if backbone.get('type') == 'MobileNetV2':
+            for k in ('mvf_freq', 'shift_place', 'temporal_pool',
+                      'two_path'):
+                module_cfg.pop(k, None)
+            backbone['temporal_cfg'] = dict(type=mtype, **module_cfg)
+        elif mtype in ('MVF', 'CoST'):
+            # MVF calls its mask mvf_freq, CoST shift_freq
+            freq = module_cfg.pop('mvf_freq',
+                                  module_cfg.pop('shift_freq', (1, 1, 1, 1)))
+            for k in ('place', 'temporal_pool', 'two_path'):
+                module_cfg.pop(k, None)
+            backbone['temporal_cfg'] = dict(type=mtype, **module_cfg)
+            backbone['temporal_freq'] = tuple(freq)
+        else:
+            raise NotImplementedError(f'module type {mtype}')
     if modality == 'Flow':
         backbone['in_channels'] = 2 * 5
     elif modality == 'RGBDiff':

@@ -10,7 +10,8 @@ and averages them per video as ``test_cfg['average_clips']`` says; with
 many at a time (the same scores), unless the count does not divide them,
 which logs a warning and runs them at once. ``forward_extract_feat``
 returns each clip's backbone features averaged over (T, H, W), a SlowFast
-pathway pair concatenated. Params are fp32; the compute dtype is ``dtype``
+pathway pair concatenated. ``RecognizerC2D`` is the same recognizer with
+a ``modality`` field. Params are fp32; the compute dtype is ``dtype``
 (the config's ``compute_dtype``), or the params' dtype when None.
 """
 
@@ -100,3 +101,16 @@ class Recognizer3D(nn.Module):
         """(B*clips, C): each clip's pooled features."""
         imgs = imgs.reshape((-1,) + tuple(imgs.shape[2:]))
         return pooled_features(self.extract_feat(imgs))
+
+
+@RECOGNIZERS.register_module
+class RecognizerC2D(Recognizer3D):
+    """``Recognizer3D`` with a ``modality`` field, the JAX package's
+    ``RecognizerC2D``: the same clip-volume forward, the field stored and
+    otherwise unused, as there (the reference's tsm_c2d surgery imports a
+    module it never ships)."""
+
+    def __init__(self, backbone: Dict, cls_head: Dict, modality: str = 'RGB',
+                 **kwargs):
+        super().__init__(backbone, cls_head, **kwargs)
+        self.modality = modality

@@ -6,10 +6,18 @@
   JAX importer's layout changes: HWIO conv kernels -> OIHW, THWIO ones ->
   OITHW, ``(3, C)`` MVF taps -> Conv3d-shaped ``(C, 1, kT, kH, kW)``,
   Dense ``(in, out)`` -> Linear ``(out, in)`` (X3D's SE pair -> the
-  reference's 1x1x1 Conv3d ``(out, in, 1, 1, 1)``), the BN names, and the
-  3-D families' module names (SlowFast's flat ``slow_*``/``fast_*`` ->
-  ``slow_path.``/``fast_path.``, X3D's ``conv1_3x1``/``conv1_3x1_bn`` ->
-  ``conv1_3x1.{0,1}``, the I3D heads' FC -> ``fc_cls``). ``jax_entries``
+  reference's 1x1x1 Conv3d ``(out, in, 1, 1, 1)``), CoST's shared HWIO
+  kernel -> the reference's ``(C, C, 1, 3, 3)``, the BN names, and the
+  module names of the other families (SlowFast's flat ``slow_*``/
+  ``fast_*`` -> ``slow_path.``/``fast_path.``, X3D's ``conv1_3x1``/
+  ``conv1_3x1_bn`` -> ``conv1_3x1.{0,1}``, the I3D heads' FC ->
+  ``fc_cls``, BNInception's nested ``{name}/{conv,bn}`` -> the flat
+  ``{name}`` and ``{name}_bn``, MobileNetV2's named modules -> d-li14's
+  ``features.K.conv.I``, a 2-D non-local block ``nonlocal{i}_{j}`` ->
+  ``layer{i}.{j}.nl`` beside the wrapped ``layer{i}.{j}.block``, I3D's
+  ``LocalAttention_0`` -> ``nonlocal_block``, CoST_0 -> ``conv2``, the TRN
+  MLPs -> ``segmental_consensus.{classifier,fc_fusion_scales.i}``).
+  ``jax_entries``
   gives the same mapping leaf by leaf, with each leaf's JAX path;
   ``jax_variables_from_state_dict`` is its inverse.
 - ``load_torch_state_dict``: a reference ``.pth`` -> ``{name: tensor}``.
@@ -65,49 +73,132 @@ def _leaves(tree: Dict[str, Any], path: Tuple[str, ...] = ()
 
 def _module_name(name: str) -> str:
     """JAX module name -> torch module path ('layer3_0' -> 'layer3.0',
-    'slow_layer3_0' -> 'slow_path.layer3.0')."""
+    'slow_layer3_0' -> 'slow_path.layer3.0', 'nonlocal2_1' ->
+    'layer2.1.nl')."""
     m = re.fullmatch(r'layer(\d+)_(\d+)', name)
     if m:
         return f'layer{m.group(1)}.{m.group(2)}'
+    m = re.fullmatch(r'nonlocal(\d+)_(\d+)', name)
+    if m:
+        return f'layer{m.group(1)}.{m.group(2)}.nl'
     m = re.fullmatch(r'(slow|fast)_(.+)', name)
     if m:
         return f'{m.group(1)}_path.{_module_name(m.group(2))}'
+    m = re.fullmatch(r'fc_fusion_(\d+)_fc([12])', name)
+    if m:       # TRNmultiscale: Sequential(ReLU, Linear, ReLU, Linear)
+        return f'fc_fusion_scales.{m.group(1)}.{2 * int(m.group(2)) - 1}'
     return {'downsample_conv': 'downsample.0',
             'downsample_bn': 'downsample.1',
             'conv1_3x1': 'conv1_3x1.0', 'conv1_3x1_bn': 'conv1_3x1.1',
             'backbone_mod': 'backbone', 'head_mod': 'cls_head',
-            'fc': 'new_fc'}.get(name, name)
+            'fc': 'new_fc', 'consensus': 'segmental_consensus',
+            'LocalAttention_0': 'nonlocal_block', 'CoST_0': 'conv2',
+            'stem_conv': 'features.0.0', 'stem_bn': 'features.0.1',
+            'head_conv': 'conv.0', 'head_bn': 'conv.1'}.get(name, name)
 
 
-def _head_fc(leaves) -> str:
-    """The head FC's port name for a JAX variable tree: ``fc_cls`` (the I3D
-    heads) when the backbone convolves in 3-D, else ``new_fc`` (TSN)."""
-    return 'fc_cls' if any(path[-1] == 'kernel' and np.ndim(v) == 5
-                           for path, v in leaves) else 'new_fc'
+# BNInception's branch modules -> the reference's name suffixes
+_BNI_BRANCH = {'b1x1': '1x1', 'b3_reduce': '3x3_reduce', 'b3': '3x3',
+               'bd_reduce': 'double_3x3_reduce', 'bd1': 'double_3x3_1',
+               'bd2': 'double_3x3_2', 'bpool_proj': 'pool_proj'}
+_BNI_STEM = ('conv1_7x7_s2', 'conv2_3x3_reduce', 'conv2_3x3')
+# MobileNetV2's block modules -> d-li14's ``conv`` Sequential indices:
+# block 0 has no expansion, the others do
+_MBV2_INDEX = (
+    {'dw_conv': 0, 'dw_bn': 1, 'pw_linear_conv': 3, 'pw_linear_bn': 4},
+    {'pw_conv': 0, 'pw_bn': 1, 'dw_conv': 3, 'dw_bn': 4,
+     'pw_linear_conv': 6, 'pw_linear_bn': 7})
+
+
+class _TreeContext:
+    """What naming a JAX leaf in the port needs from the rest of its tree:
+    the modules holding an MVF (whose conv becomes ``net``), the 2-D blocks
+    that a non-local block follows (which become ``block``), and the head
+    FC's name (``fc_cls`` when the backbone convolves in 3-D outside its
+    non-local blocks, else ``new_fc``)."""
+
+    def __init__(self, leaves):
+        """``leaves``: (JAX path, number of dimensions) of every leaf."""
+        leaves = list(leaves)
+        self.mvf = {tuple(p[:p.index('MVF_0')]) for p, _ in leaves
+                    if 'MVF_0' in p}
+        self.wrapped = {re.sub(r'^nonlocal', 'layer', m) for p, _ in leaves
+                        for m in p if re.fullmatch(r'nonlocal\d+_\d+', m)}
+        self.head_fc = 'fc_cls' if any(
+            p[-1] == 'kernel' and nd == 5 and not any(
+                m.startswith(('nonlocal', 'LocalAttention')) for m in p)
+            for p, nd in leaves) else 'new_fc'
+
+
+def _port_prefix(mods, ctx: '_TreeContext') -> str:
+    """The port's dotted module path of a JAX module path."""
+    out = []
+    i = 0
+    while i < len(mods):
+        m = mods[i]
+        nxt = mods[i + 1] if i + 1 < len(mods) else None
+        if m in _BNI_STEM and nxt in ('conv', 'bn'):
+            out.append(m if nxt == 'conv' else m + '_bn')
+            i += 2
+            continue
+        if m.startswith('inception_') and nxt in _BNI_BRANCH:
+            out.append(f'{m}_{_BNI_BRANCH[nxt]}'
+                       + ('_bn' if mods[i + 2] == 'bn' else ''))
+            i += 3
+            continue
+        blk = re.fullmatch(r'block(\d+)', m)
+        if blk and nxt is not None:
+            b = int(blk.group(1))
+            if nxt == 'MVF_0':
+                out.append(f'features.{b + 1}.conv.0')
+            else:
+                out.append(f'features.{b + 1}.conv.'
+                           f'{_MBV2_INDEX[b > 0][nxt]}')
+                if nxt == 'pw_conv' and tuple(mods[:i + 1]) in ctx.mvf:
+                    out.append('net')
+            i += 2
+            continue
+        if m == 'consensus' and nxt in ('fc1', 'fc2'):   # TRN's MLP
+            out.append(f'segmental_consensus.classifier.'
+                       f'{1 if nxt == "fc1" else 3}')
+            i += 2
+            continue
+        if m == 'MVF_0':                # a ResNet block's MVF wraps conv1
+            out.append('conv1')
+        else:
+            out.append(_module_name(m))
+            if m in ctx.wrapped:
+                out.append('block')
+            if m == 'fc' and out[:1] == ['cls_head']:
+                out[-1] = ctx.head_fc
+        i += 1
+    return '.'.join(out)
 
 
 def _torch_entry(path: Tuple[str, ...], value: np.ndarray,
-                 mvf_blocks: set, head_fc: str = 'new_fc'
-                 ) -> Tuple[str, np.ndarray]:
+                 ctx: _TreeContext) -> Tuple[str, np.ndarray]:
     *mods, leaf = path
     if mods and mods[-1] == 'MVF_0':
-        block = '.'.join(_module_name(m) for m in mods[:-1])
+        prefix = _port_prefix(mods, ctx)
         if leaf in _TAP_SHAPE:
             cs = value.shape[1]
-            return (f'{block}.conv1.{leaf}.weight',
+            return (f'{prefix}.{leaf}.weight',
                     value.T.reshape((cs, 1) + _TAP_SHAPE[leaf]))
-        return f'{block}.conv1.{_MVF_LEAF[leaf]}', value
-    prefix = '.'.join(_module_name(m) for m in mods)
-    if prefix == 'cls_head.new_fc':
-        prefix = f'cls_head.{head_fc}'
+        return f'{prefix}.{_MVF_LEAF[leaf]}', value
+    prefix = _port_prefix(mods, ctx)
+    if mods and mods[-1] == 'CoST_0' and leaf == 'shift_conv':
+        # the shared HWIO kernel -> the reference's Conv3d (O, I, 1, 3, 3)
+        return (f'{prefix}.shift_conv.weight',
+                value.transpose(3, 2, 0, 1)[:, :, None])
+    if leaf == 'time_weighting':
+        return f'{prefix}.time_weighting', value
     if leaf == 'kernel' and value.ndim == 5:        # THWIO -> OITHW
         return f'{prefix}.weight', value.transpose(4, 3, 0, 1, 2)
     if leaf == 'kernel' and value.ndim == 2 and mods[-2] == 'se':
         return (f'{prefix}.weight',
                 value.T.reshape(value.shape[::-1] + (1, 1, 1)))
     if leaf == 'kernel' and value.ndim == 4:
-        if mods[-1] == 'conv1' and '.'.join(
-                _module_name(m) for m in mods[:-1]) in mvf_blocks:
+        if mods[-1] == 'conv1' and tuple(mods[:-1]) in ctx.mvf:
             prefix += '.net'          # MVF wraps the block's conv1
         return f'{prefix}.weight', value.transpose(3, 2, 0, 1)
     if leaf == 'kernel' and value.ndim == 2:
@@ -124,11 +215,9 @@ def jax_entries(variables: Dict[str, Any]
     '/'-joined inside its collection, as optax's labels see it."""
     leaves = [(coll, path, v) for coll in ('params', 'batch_stats')
               for path, v in _leaves(variables.get(coll, {}))]
-    mvf_blocks = {'.'.join(_module_name(m) for m in path[:-2])
-                  for _, path, _ in leaves if 'MVF_0' in path}
-    head_fc = _head_fc((path, v) for _, path, v in leaves)
+    ctx = _TreeContext((path, np.ndim(v)) for _, path, v in leaves)
     for coll, path, value in leaves:
-        name, v = _torch_entry(path, value, mvf_blocks, head_fc)
+        name, v = _torch_entry(path, value, ctx)
         yield coll, '/'.join(path), name, v
 
 
@@ -162,7 +251,6 @@ def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
 
 _HEAD_ALIASES = ('new_fc', 'new_cls', 'fc_cls')
 _HEAD_FCS = ('new_fc', 'fc_cls')
-_BLOCK_CONV1 = re.compile(r'(backbone\.layer\d+\.\d+\.conv1)(\.net)?\.weight$')
 _AVG_DOWN_CONV = re.compile(r'\.downsample\.1\.weight$')
 
 
@@ -198,14 +286,35 @@ def _port_name(key: str, targets) -> Optional[str]:
         # reference builds and its forward never uses
         return None
     name = key if parts[0] == 'backbone' else 'backbone.' + key
-    m = _BLOCK_CONV1.match(name)
-    if m and name not in targets:
-        # MVF wraps a block's conv1 as conv1.net: a plain ResNet's conv1
-        # is the same weight, and the other way round
-        other = m.group(1) + ('.weight' if m.group(2) else '.net.weight')
-        if other in targets:
-            return other
+    if name not in targets:
+        for other in _alternates(name):
+            if other in targets:
+                return other
     return name
+
+
+_WRAPPED_CONV = re.compile(
+    r'(backbone\.(?:layer\d+\.\d+(?:\.block)?\.conv1'
+    r'|features\.\d+\.conv\.0))(\.net)?\.weight$')
+_NL_BLOCK = re.compile(r'^(backbone\.layer\d+\.\d+)(\.block)?\.')
+
+
+def _alternates(name: str) -> List[str]:
+    """Port names that stand for ``name`` in a model of another wrapping,
+    as the JAX importer maps both to one path: a conv and its MVF-wrapped
+    ``net`` (a ResNet block's conv1, MobileNetV2's expanding conv), a 2-D
+    block and the ``block`` a non-local block wraps, and both at once."""
+    out = []
+    m = _NL_BLOCK.match(name)
+    if m:
+        out.append(m.group(1) + ('.' if m.group(2) else '.block.')
+                   + name[m.end():])
+    for n in [name] + out:
+        c = _WRAPPED_CONV.match(n)
+        if c:
+            out.append(c.group(1) + ('.weight' if c.group(2)
+                                     else '.net.weight'))
+    return out
 
 
 def import_torch_state_dict(model: torch.nn.Module,
@@ -218,8 +327,9 @@ def import_torch_state_dict(model: torch.nn.Module,
 
     The key rules of the JAX package's ``import_torch_weights``
     (``mvfnet_tpu/utils/checkpoint.py:165-492``) for the 2-D ResNet (its
-    options included), MVF, the TSN head and the 3-D families (I3D,
-    SlowFast, X3D, whose port names are the reference's): ``module.``
+    options included), MVF, CoST, non-local blocks, BNInception,
+    MobileNetV2, the TSN head with TRN, and the 3-D families (I3D,
+    SlowFast, X3D), whose port names are the reference's: ``module.``
     prefixes are stripped, ``num_batches_tracked``, torchvision's ``fc.*``
     and SlowFast's unused ``layer4_lateral`` are skipped,
     ``cls_head.{new_fc,new_cls,fc_cls}.*`` load into the head's FC
@@ -230,16 +340,19 @@ def import_torch_state_dict(model: torch.nn.Module,
     I3D ``init_weights``). The
     reference's avg_down shortcut (pool, conv, norm at indices 0-2) loads
     into the port's (conv, norm at 0-1); the JAX importer takes its conv
-    for the norm and reports it mismatched (ROADMAP.md, section C). A key of
+    for the norm and reports it mismatched (ROADMAP.md, section C). A conv
+    and its MVF-wrapped ``net`` stand for each other (a ResNet block's
+    conv1, MobileNetV2's expanding conv), and so do a 2-D block and the
+    ``block`` a non-local block wraps. A key of
     the wrong size is skipped and reported as mismatched and, as in the JAX
     importer, also as unexpected; a key the model lacks is unexpected; a
     model entry no key reached keeps its value and is reported missing.
     ``inflate_in_channels`` (10 for Flow, 15 for RGBDiff) turns an RGB stem
     into the mean over its input channels, broadcast (before a temporal
-    inflation). The vocabularies the port has no model for (BNInception,
-    MobileNet, R(2+1)D, TRN, non-local) end up unexpected, and so do the
-    keys the JAX importer also reports: X3D's unused stem ``bn1``, biases
-    of convs without one, the fast pathway's laterals.
+    inflation). The vocabularies the port has no model for (R(2+1)D,
+    InceptionV1-I3D) end up unexpected, and so do the keys the JAX importer
+    also reports: X3D's unused stem ``bn1``, biases of convs without one,
+    the fast pathway's laterals.
     """
     logger = logger or get_root_logger()
     targets = model.state_dict()
@@ -368,17 +481,60 @@ def load_weights(model: torch.nn.Module, path: str,
 # ------------------------------------------------------ .msgpack checkpoints
 
 _COLLECTIONS = ('params', 'batch_stats')
+_BNI_SUFFIX = {v: k for k, v in _BNI_BRANCH.items()}
+
+
+def _mbv2_module(m) -> str:
+    """``features.K.conv.I`` -> MobileNetV2's ``block{K-1}.{module}``."""
+    b = int(m.group(1)) - 1
+    index = {i: name for name, i in _MBV2_INDEX[b > 0].items()}
+    return f'block{b}.{index[int(m.group(2))]}.'
+
+
 # port name -> JAX path, applied in order to the name's module part
 _JAX_MODULE_RULES = (
     (re.compile(r'^backbone\.'), 'backbone_mod.'),
-    (re.compile(r'^cls_head\.new_fc\.'), 'head_mod.fc.'),
+    (re.compile(r'^cls_head\.(new_fc|fc_cls)\.'), 'head_mod.fc.'),
+    (re.compile(r'^cls_head\.segmental_consensus\.classifier\.([13])\.'),
+     lambda m: f'head_mod.consensus.fc{(int(m.group(1)) + 1) // 2}.'),
+    (re.compile(r'^cls_head\.segmental_consensus\.fc_fusion_scales\.'
+                r'(\d+)\.([13])\.'),
+     lambda m: (f'head_mod.consensus.fc_fusion_{m.group(1)}_'
+                f'fc{(int(m.group(2)) + 1) // 2}.')),
+    # BNInception: flat conv / conv_bn pairs -> nested conv / bn
+    (re.compile(r'\b(conv1_7x7_s2|conv2_3x3_reduce|conv2_3x3)_bn\.'),
+     r'\1.bn.'),
+    (re.compile(r'\b(conv1_7x7_s2|conv2_3x3_reduce|conv2_3x3)\.'
+                r'(?=(weight|bias)$)'), r'\1.conv.'),
+    (re.compile(r'\binception_(\d[a-z])_(1x1|3x3_reduce|3x3|double_3x3_reduce'
+                r'|double_3x3_1|double_3x3_2|pool_proj)(_bn)?\.'),
+     lambda m: (f'inception_{m.group(1)}.{_BNI_SUFFIX[m.group(2)]}.'
+                f'{"bn" if m.group(3) else "conv"}.')),
+    # MobileNetV2: d-li14's Sequential indices -> named modules
+    (re.compile(r'\bfeatures\.0\.0\.'), 'stem_conv.'),
+    (re.compile(r'\bfeatures\.0\.1\.'), 'stem_bn.'),
+    (re.compile(r'\bfeatures\.(\d+)\.conv\.0\.(shift_conv|h_conv|w_conv)'
+                r'\.weight$'),
+     lambda m: f'block{int(m.group(1)) - 1}.MVF_0.{m.group(2)}'),
+    (re.compile(r'\bfeatures\.(\d+)\.conv\.0\.bn\.'
+                r'(weight|bias|running_mean|running_var)$'),
+     lambda m: f'block{int(m.group(1)) - 1}.MVF_0.bn_{m.group(2)}'),
+    (re.compile(r'\bfeatures\.(\d+)\.conv\.(\d+)\.(net\.)?'), _mbv2_module),
+    (re.compile(r'^backbone_mod\.conv\.0\.'), 'backbone_mod.head_conv.'),
+    (re.compile(r'^backbone_mod\.conv\.1\.'), 'backbone_mod.head_bn.'),
+    # non-local blocks: 2-D beside the wrapped block, 3-D inside it
+    (re.compile(r'\blayer(\d+)\.(\d+)\.nl\.'), r'nonlocal\1_\2.'),
+    (re.compile(r'\blayer(\d+)\.(\d+)\.block\.'), r'layer\1.\2.'),
+    (re.compile(r'\bnonlocal_block\.'), 'LocalAttention_0.'),
+    # CoST replaces conv2
+    (re.compile(r'\bconv2\.shift_conv\.weight$'), 'CoST_0.shift_conv'),
+    (re.compile(r'\bconv2\.bn\.'), 'CoST_0.bn.'),
     (re.compile(r'\blayer(\d+)\.(\d+)\b'), r'layer\1_\2'),
     (re.compile(r'\bdownsample\.0\b'), 'downsample_conv'),
     (re.compile(r'\bdownsample\.1\b'), 'downsample_bn'),
     (re.compile(r'\bconv1_3x1\.0\b'), 'conv1_3x1'),
     (re.compile(r'\bconv1_3x1\.1\b'), 'conv1_3x1_bn'),
     (re.compile(r'\b(slow|fast)_path\.'), r'\1_'),
-    (re.compile(r'^cls_head\.fc_cls\.'), 'head_mod.fc.'),
     (re.compile(r'\bconv1\.net\b'), 'conv1'),
     (re.compile(r'\bconv1\.(shift_conv|h_conv|w_conv)\.weight$'),
      r'MVF_0.\1'),
@@ -406,6 +562,11 @@ def _jax_entry(name: str, value: torch.Tensor
         jname = pattern.sub(repl, jname)
     *mods, leaf = jname.split('.')
     v = value.detach().cpu()
+    if leaf == 'shift_conv' and mods[-1] == 'CoST_0':   # (O, I, 1, 3, 3)
+        return 'params', tuple(mods) + (leaf,), \
+            v[:, :, 0].permute(2, 3, 1, 0).numpy()
+    if leaf == 'time_weighting':
+        return 'params', tuple(mods) + (leaf,), v.numpy()
     if leaf in _TAP_SHAPE:                       # (C, 1, kT, kH, kW)
         return 'params', tuple(mods) + (leaf,), v.reshape(-1, 3).T.numpy()
     if leaf == 'weight' and v.ndim == 5 and mods[-2] == 'se':
@@ -557,10 +718,9 @@ def load_optax_state(model: torch.nn.Module, optimizer,
             or inner['frozen'] != {'inner_state': {}}:
         raise _layout_error(f'labels {sorted(inner)}')
     names = _param_names(model)
-    mvf_blocks = {n[:-len('.conv1.net.weight')] for n in names.values()
-                  if n.endswith('.conv1.net.weight')}
-    head_fc = next((f for f in _HEAD_FCS
-                    if f'cls_head.{f}.weight' in names.values()), 'new_fc')
+    entries = [e for e in (_jax_entry(n, v)
+                           for n, v in model.state_dict().items()) if e]
+    ctx = _TreeContext((path, v.ndim) for _, path, v in entries)
     groups = {g['label']: g['params'] for g in optimizer.param_groups}
     for label, keys in layout.items():
         chain = inner[label].get('inner_state', {})
@@ -580,7 +740,7 @@ def load_optax_state(model: torch.nn.Module, optimizer,
             if path not in leaves:
                 raise _layout_error(f'no {label!r} trace for {name}')
             back, v = _torch_entry(path, np.asarray(leaves.pop(path)),
-                                   mvf_blocks, head_fc)
+                                   ctx)
             if back != name or tuple(v.shape) != tuple(p.shape):
                 raise _layout_error(f'trace {"/".join(path)} does not fit '
                                     f'{name}')

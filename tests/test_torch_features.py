@@ -1,8 +1,9 @@
 """Port parity: feature extraction.
 
 Three rawframe videos (the frames of ``test_torch_eval.py``), one clip of
-T=4 frames each, a 32x32 centre crop, through MVFNet-R50 (T=4, 11 classes)
-in f64 on both sides. The weights are the port's seeded init with
+T=4 frames each, a 32x32 centre crop, through the first two stages of
+MVFNet-R50 (MVF in the first, T=4, 11 classes; ``test_torch_eval.py``'s
+model) in f64 on both sides. The weights are the port's seeded init with
 randomized BN statistics, carried into the JAX package with
 ``jax_variables_from_state_dict``; they are float32 numbers, so a float32
 checkpoint holds them exactly.
@@ -49,11 +50,12 @@ from mvfnet_tpu_torch.engine.eval import evaluate_dataset
 from mvfnet_tpu_torch.models import build_recognizer
 from mvfnet_tpu_torch.tools import feature_extractor as cli
 from mvfnet_tpu_torch.utils.checkpoint import jax_variables_from_state_dict
-from test_torch_recognizer import NUM_CLASSES, T, model_cfg
+from test_torch_eval import model_cfg
+from test_torch_recognizer import NUM_CLASSES, T
 
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), '..'))
 VIDEOS = [('v0', 12, 3), ('v1', 20, 7), ('v2', 9, 3)]
-CROP, C = 32, 2048
+CROP, C = 32, 512
 MEAN, STD = [123.675, 116.28, 103.53], [58.395, 57.12, 57.375]
 
 

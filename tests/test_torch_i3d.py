@@ -17,6 +17,7 @@ trajectories) serve ``test_torch_slowfast_x3d.py`` and
 ``test_torch_3d_entry.py`` too.
 """
 
+import contextlib
 import functools
 import logging
 import os
@@ -39,7 +40,7 @@ from mvfnet_tpu_torch.engine.optim import (build_lr_schedule,
                                            frozen_prefixes_from_backbone,
                                            param_label)
 from mvfnet_tpu_torch.engine.train_step import make_train_step
-from mvfnet_tpu_torch.models import build_recognizer
+from mvfnet_tpu_torch.models import build_backbone, build_recognizer
 from mvfnet_tpu_torch.models.backbones import resnet_i3d
 from mvfnet_tpu_torch.models.heads.i3d_head import I3DClsHead
 from mvfnet_tpu_torch.models.recognizers import recognizer3d
@@ -206,6 +207,21 @@ def assert_step_matches_jax(cfg, steps=1, recipe=RECIPE, t=T):
     return port
 
 
+@contextlib.contextmanager
+def one_thread():
+    """torch on one intra-op thread. On the CPU an f64 grouped convolution
+    (MobileNetV2's and X3D's depthwise ones) runs as one small convolution
+    per group, each a parallel region that costs more than its work: many
+    times slower on 8 threads than on one, and far worse when other
+    processes share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope='module', autouse=True)
 def f64():
     jax.config.update('jax_enable_x64', True)
@@ -283,17 +299,25 @@ def test_with_cp_equals_the_step_without_it():
             if k.endswith('num_batches_tracked')} == {2}
 
 
+@functools.lru_cache(maxsize=1)
+def _six_views():
+    """``r18_basic`` in eval, six views of one video, and their scores at
+    once; one model and one reference for every chunk size."""
+    port = port_model(CASES['r18_basic']).eval()
+    x = torch.from_numpy(clips(2, (1,))).repeat(1, 6, 1, 1, 1, 1) \
+        + torch.arange(6.0).reshape(1, 6, 1, 1, 1, 1) * 0.1
+    with torch.no_grad():
+        whole = port(x, None, return_loss=False)
+    return port, x, whole
+
+
 @pytest.mark.parametrize('chunk', [2, 3, 4])
 def test_view_chunk_scores_equal_unchunked(chunk):
     """Six views of one video scored ``chunk`` at a time equal the views
     scored at once; a chunk that does not divide them (4) logs the warning
     and runs them at once."""
-    cfg = CASES['r18_basic']
-    port = port_model(cfg).eval()
-    x = torch.from_numpy(clips(2, (1,))).repeat(1, 6, 1, 1, 1, 1) \
-        + torch.arange(6.0).reshape(1, 6, 1, 1, 1, 1) * 0.1
+    port, x, whole = _six_views()
     with torch.no_grad():
-        whole = port(x, None, return_loss=False)
         port.test_cfg = dict(average_clips=None, view_chunk=chunk)
         calls = []
         real = port.backbone.forward
@@ -308,6 +332,7 @@ def test_view_chunk_scores_equal_unchunked(chunk):
             got = port(x, None, return_loss=False)
         finally:
             logger.removeHandler(handler)
+            del port.backbone.forward      # the class's forward again
     divides = 6 % chunk == 0
     assert [r.getMessage() for r in records] == (
         [] if divides else ['test_cfg.view_chunk=4 ignored: 6 views not '
@@ -348,8 +373,16 @@ def test_head_pools_dropout_and_features():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match='A12'):
-        resnet_i3d.ResNet_I3D(depth=50, nonlocal_cfg=dict(type='NL'))
+    """The int8 path raises (A14), and so do the 3-D backbones still
+    queued (A13b). Non-local blocks are ported
+    (``test_torch_temporal_modules.py``): none outside
+    ``nonlocal_stages``."""
+    bb = resnet_i3d.ResNet_I3D(depth=50, nonlocal_cfg=dict(type='NL'))
+    assert not any(n.endswith('nonlocal_block')
+                   for n, _ in bb.named_modules())
+    for name in ('ResNet_R3D', 'InceptionV1_I3D'):
+        with pytest.raises(NotImplementedError, match='A13b'):
+            build_backbone(dict(type=name, depth=18))
     with pytest.raises(NotImplementedError, match='A14'):
         resnet_i3d.ResNet_I3D(depth=50, quant='int8')
     with pytest.raises(KeyError, match='depth 26'):

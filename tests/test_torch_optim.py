@@ -258,7 +258,12 @@ def test_dropout_takes_an_explicit_generator():
 # -- the fold cache after training ------------------------------------------
 
 def _trainable_port(seed):
-    port = build_recognizer(model_cfg(), test_cfg=dict(average_clips=None))
+    """R50's first two stages: ``layer1.1-2`` and ``layer2.1-3`` fuse in
+    eval."""
+    cfg = model_cfg(num_stages=2)
+    cfg['backbone'] = dict(cfg['backbone'], out_indices=(1,))
+    cfg['cls_head'] = dict(cfg['cls_head'], in_channels=512)
+    port = build_recognizer(cfg, test_cfg=dict(average_clips=None))
     port.init_weights(torch.Generator().manual_seed(seed), randomize_bn=True)
     return port.double()
 
@@ -304,7 +309,13 @@ def test_fold_cache_follows_training(order):
 
 
 def test_bf16_compute_gives_fp32_grads():
-    port = build_recognizer(dict(model_cfg(), dtype='bfloat16'))
+    """R50's first two stages with MVF in the first: every parameter, MVF's
+    too, gets an fp32 gradient from bf16 compute."""
+    cfg = model_cfg(num_stages=2)
+    cfg['backbone'] = dict(cfg['backbone'], out_indices=(1,))
+    cfg['module_cfg'] = dict(cfg['module_cfg'], mvf_freq=(1, 0))
+    cfg['cls_head'] = dict(cfg['cls_head'], in_channels=512)
+    port = build_recognizer(dict(cfg, dtype='bfloat16'))
     port.init_weights(torch.Generator().manual_seed(0))
     sched = build_lr_schedule(dict(policy='step', step=[10]), 0.01, 1, 1)
     opt = build_optimizer(port, dict(type='SGD', lr=0.01, momentum=0.9),

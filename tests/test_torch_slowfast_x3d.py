@@ -44,7 +44,7 @@ from mvfnet_tpu_torch.utils.checkpoint import (import_torch_state_dict,
                                                save_msgpack_checkpoint)
 from test_torch_i3d import (ATOL, B, BN3D, HW, LR_CONFIG, MAX_NORM,
                             NUM_CLASSES, RECIPE, RTOL, assert_step_matches_jax,
-                            jax_variables, model_cfg,
+                            jax_variables, model_cfg, one_thread,
                             port_model, template)
 
 SF_T = 16
@@ -153,33 +153,42 @@ def _step_once(cfg, x, y):
     return port, opt, metrics
 
 
+def _layout_run(backbone, slowfast, x, y):
+    """The state-dict shapes, eval logits, one train step's loss and the
+    state after it, in float32."""
+    cfg = (model_cfg(backbone, 256 + 64, 'I3DSlowFastClsHead')
+           if slowfast else model_cfg(backbone, 2048))
+    port = build_recognizer(cfg, test_cfg=dict(average_clips=None))
+    port.init_weights(torch.Generator().manual_seed(0), randomize_bn=True)
+    shapes = {k: tuple(v.shape) for k, v in port.state_dict().items()}
+    with torch.no_grad():
+        logits = port.eval()(torch.from_numpy(x).float(), None,
+                             return_loss=False)
+    sched = build_lr_schedule(LR_CONFIG, RECIPE['lr'], 1, 8)
+    opt = build_optimizer(port, RECIPE, sched,
+                          grad_clip=dict(max_norm=MAX_NORM, norm_type=2))
+    m = make_train_step(port, opt, sched, device='cpu')(
+        x.astype(np.float32), y)
+    return shapes, logits, m['loss'], port.state_dict()
+
+
 @pytest.mark.parametrize('packed,plain', [
-    (sf_backbone(), sf_backbone(fast_pack=0, stem_s2d=False)),
+    (sf_backbone(**dict(SF18, fast_pack=2, stem_s2d=True)),
+     sf_backbone(**dict(SF18, stem_s2d=False))),
     (x3d_backbone(depth=1, s2d_stages=(1,)), x3d_backbone(depth=1)),
 ], ids=['slowfast_fast_pack_stem_s2d', 'x3d_s2d_stages'])
 def test_tpu_layouts_change_neither_names_nor_bits(packed, plain):
     """The JAX package's TPU re-layouts: the same ``state_dict`` keys and
-    shapes, bit-equal eval logits and one bit-equal train step (float32)."""
+    shapes, bit-equal eval logits and one bit-equal train step (float32).
+    SlowFast's on the ResNet-18 pathways of ``sf18_options``: the port
+    computes both forms plainly at any depth."""
     slowfast = 'tau' in packed
-    x = clips(3, SF_T if slowfast else 8)
+    x = clips(3, 8)
     y = np.random.RandomState(4).randint(0, NUM_CLASSES, B)
     runs = []
-    for backbone in (packed, plain):
-        cfg = (model_cfg(backbone, 2048 + 256, 'I3DSlowFastClsHead')
-               if slowfast else model_cfg(backbone, 2048))
-        port = build_recognizer(cfg, test_cfg=dict(average_clips=None))
-        port.init_weights(torch.Generator().manual_seed(0),
-                          randomize_bn=True)
-        shapes = {k: tuple(v.shape) for k, v in port.state_dict().items()}
-        with torch.no_grad():
-            logits = port.eval()(torch.from_numpy(x).float(), None,
-                                 return_loss=False)
-        sched = build_lr_schedule(LR_CONFIG, RECIPE['lr'], 1, 8)
-        opt = build_optimizer(port, RECIPE, sched,
-                              grad_clip=dict(max_norm=MAX_NORM, norm_type=2))
-        m = make_train_step(port, opt, sched, device='cpu')(
-            x.astype(np.float32), y)
-        runs.append((shapes, logits, m['loss'], port.state_dict()))
+    with one_thread():                  # X3D's depthwise convolutions
+        for backbone in (packed, plain):
+            runs.append(_layout_run(backbone, slowfast, x, y))
     (sa, la, lossa, sda), (sb, lb, lossb, sdb) = runs
     assert sa == sb
     assert torch.equal(la, lb) and torch.equal(lossa, lossb)

@@ -70,7 +70,7 @@ from mvfnet_tpu_torch.utils.checkpoint import (
     state_dict_from_jax)
 
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), '..'))
-T, CROP, NUM_CLASSES = 2, 64, 2
+T, CROP, NUM_CLASSES = 2, 32, 2
 NORM = dict(mean=[123.675, 116.28, 103.53], std=[58.395, 57.12, 57.375],
             to_rgb=True)
 LOG_LINE = re.compile(

@@ -130,12 +130,18 @@ def _both_steps(cfg, variables, optimizer_cfg, max_norm):
     return jstep, jstate, jsched, port, step
 
 
+@pytest.fixture(scope='module')
+def variables(f64):
+    """The JAX package's initial variables, one init for every case:
+    ``frozen_stages`` changes the optimizer, not the variables."""
+    return _jax_variables(jax_build(model_cfg({})))
+
+
 @pytest.mark.parametrize('case', sorted(CASES))
-def test_train_trajectory_matches_jax(f64, data, case):
+def test_train_trajectory_matches_jax(f64, data, variables, case):
     imgs, labels = data
     spec = CASES[case]
     cfg = model_cfg(spec['backbone'])
-    variables = _jax_variables(jax_build(cfg))
     jstep, jstate, jsched, port, step = _both_steps(
         cfg, variables, spec['optimizer'], spec['max_norm'])
     before = {k: v.clone() for k, v in port.state_dict().items()}

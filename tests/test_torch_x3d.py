@@ -14,14 +14,15 @@ import jax.numpy as jnp
 from mvfnet_tpu.models import build_backbone as jax_build_backbone
 from mvfnet_tpu_torch.models import build_backbone
 from test_torch_i3d import (ATOL, B, RECIPE, RTOL, assert_step_matches_jax,
-                            jax_variables, model_cfg, port_model)
+                            jax_variables, model_cfg, one_thread, port_model)
 from test_torch_slowfast_x3d import HW, X3D, clips, nthwc, x3d_backbone
 
 
 @pytest.fixture(scope='module', autouse=True)
 def f64():
     jax.config.update('jax_enable_x64', True)
-    yield
+    with one_thread():         # X3D's depthwise convolutions in f64
+        yield
     jax.config.update('jax_enable_x64', False)
 
 
