@@ -5,8 +5,9 @@
 
 Phases, each of which exits non-zero on failure:
 
-1. build: compiles the port's CUDA kernel from ``mvfnet_tpu_torch/csrc``
-   with nvcc and prints ptxas's register report.
+1. build: compiles the port's CUDA kernels from ``mvfnet_tpu_torch/csrc``
+   with nvcc, one process per source at once, and prints ptxas's register
+   report.
 2. kernel: holds each kernel against its plain PyTorch version on the card,
    in float32 (TF32 off) and bfloat16, at the unit-test shapes and at the
    shapes the dense-test path and the train CLI's evaluation give it, and
@@ -140,11 +141,37 @@ Phases, each of which exits non-zero on failure:
    ``.pth`` (its JSON line). One view of each case on the card lies within
    3e-2 of max|logit| of the fp32 CPU forward (``family11:`` lines).
 
+12. the int8 eval path and the last two 3-D backbones, bf16, seeded
+   weights: (b) the flagship's dense test (240 x 256^2, the 5th of phase
+   5's videos through its test pipeline) under ``int8``,
+   ``int8_static`` with ``quant_stages`` (1, 1, 0, 0) and (1, 1, 1, 1),
+   each calibrated through the test CLI with ``--calib_videos`` on 4 of
+   phase 5's videos, and the (1, 1, 1, 1) ``quant_carry`` variant: per-clip
+   logits within 5% rms of the same model's bf16 ones (the carry within 2%
+   of its unfused twin), the fused launches worked out from
+   ``quant_stages`` (none at quantized stages), clips/s, device ms a
+   video, idle share and the device time of the quantize passes (their
+   ``record_function`` ranges); (c) ``validate_k400 --quant int8_static
+   --quant-stages 1 1 0 0`` on the 8 videos; (d) the shipped I3D config
+   under ``int8_static`` (calibrated on the video) and the X3D config
+   under ``int8``, one dense video each within 5% of bf16; (e) the
+   (1, 1, 0, 0) model's ``.msgpack`` read back into a fresh model, logits
+   within 1e-5; (g) a quantized model in training raises; (a) the int8
+   kernel at every shape (b) and (d) launched, bit for bit against its
+   plain version (N cut to 16 for the f64 plain version, both epilogues),
+   timed beside the plain version, its bound and ``torch._int_mm`` at the
+   1x1 stride-1 shapes; (f) R(2+1)D-34 at 8 x 112^2 and InceptionV1-I3D at
+   64 x 224^2: a train step (median of 5 after 2 warm-ups, the peak), a
+   dense video's device time, one view against the fp32 CPU forward
+   (``int8:``, ``int8 kernel:``, ``family12:`` lines).
+
 Prints the ``{"kernels": [...]}`` line (launches of the fused kernel per
 shape in phases 3, 5, 6 and 7, per rank in phase 8's cases as
 ``launches_dist``, per case in phase 9 as ``launches_video``, in phase
-10 as ``launches_3d`` and in phase 11 as ``launches_2d``), the card's name
-and power limit,
+10 as ``launches_3d``, in phase 11 as ``launches_2d`` and in phase 12 as
+``launches_int8``; then one record per shape of the int8 kernel, its
+``launches`` those of phase 12's timed calls), the card's name and power
+limit,
 and last ``{"ok": true, "device": {...}}``. Without CUDA, or without the
 repository beside it, it exits non-zero and prints no result.
 """
@@ -267,6 +294,38 @@ FAMILY_VIDEOS = 2
 FAMILY_2D = ('mbv2_tsm', 'mbv2_mvf', 'r50_cost', 'r50_nonlocal', 'mvf_trn',
              'mvf_trnmultiscale')
 FAMILY_EVAL_RUNS = 3
+# phase 12: the flagship's dense test under each int8 case (backbone
+# options over the config's; the static ones calibrated by the test CLI on
+# INT8_CALIB_VIDEOS of phase 5's videos, the carry with the stats of its
+# unfused twin; one case leaves stages unquantized that then fuse), INT8_RUNS timed calls each; the int8 kernel checked bit
+# for bit at every shape with N cut to INT8_CHECK_N for its f64 plain
+# version; R(2+1)D-34 at its paper's 8 x 112^2 clips and InceptionV1-I3D at
+# the I3D paper's 64 x 224^2 (backbone, feature width, frames, crop, train
+# batch)
+INT8_CASES = {
+    'int8': dict(quant='int8'),
+    'static_1100': dict(quant='int8_static', quant_stages=(1, 1, 0, 0)),
+    'static_1111': dict(quant='int8_static', quant_stages=(1, 1, 1, 1)),
+    'carry_1111': dict(quant='int8_static', quant_stages=(1, 1, 1, 1),
+                       quant_carry=True),
+    # layer1-2 unquantized and without MVF: their blocks still fuse
+    'int8_0011': dict(quant='int8', quant_stages=(0, 0, 1, 1)),
+}
+INT8_CALIBRATED = ('static_1100', 'static_1111')
+# the carry case: the calibration of its unfused twin, and held against it
+INT8_TWIN = {'carry_1111': 'static_1111'}
+INT8_MSGPACK = 'static_1100'
+INT8_CALIB_VIDEOS, INT8_RUNS, INT8_CHECK_N = 4, 3, 16
+INT8_PEAK_OPS = 1979e12     # H100 SXM dense int8 tensor-core peak
+INT8_KERNEL = dict(name='int8_conv', route='cuda',
+                   source='mvfnet_tpu_torch/csrc/int8_conv.cu',
+                   replaces='mvfnet_tpu/models/common.py:303')
+NEW_3D = {
+    'r2plus1d_34': (dict(type='ResNet_R3D', depth=34, block_type='2.5d',
+                         bn_eval=False, bn_frozen=False), 512, 8, 112, 8),
+    'inception_i3d': (dict(type='InceptionV1_I3D', bn_eval=False), 1024, 64,
+                      224, 4),
+}
 KERNEL = dict(name='fused_bottleneck', route='cuda',
               source='mvfnet_tpu_torch/csrc/fused_bottleneck.cu',
               replaces='mvfnet_tpu/ops/fused_block.py:144')
@@ -309,15 +368,23 @@ def median_ms(fn, runs=TIMED_RUNS, warmup=3):
 
 
 def phase_build():
+    """Both kernels' sources compiled at once (one nvcc each), then
+    loaded."""
+    from concurrent.futures import ThreadPoolExecutor
     from mvfnet_tpu_torch.ops import _cuda
     from mvfnet_tpu_torch.ops import fused_block as fb
+    from mvfnet_tpu_torch.ops import int8_conv as q8
     t0 = time.perf_counter()
-    lib = fb.library()
+    with ThreadPoolExecutor(2) as pool:
+        list(pool.map(_cuda._build, ('fused_bottleneck', 'int8_conv')))
+    libs = [fb.library(), q8.library()]
     secs = time.perf_counter() - t0
-    for line in _cuda.build_logs.get('fused_bottleneck', '').splitlines():
-        if 'registers' in line or 'Compiling' in line or 'spill' in line:
-            print(f'nvcc: {line.strip()}')
-    print(f'build: {os.path.basename(lib._name)} in {secs:.3f} s')
+    for name in ('fused_bottleneck', 'int8_conv'):
+        for line in _cuda.build_logs.get(name, '').splitlines():
+            if 'registers' in line or 'Compiling' in line or 'spill' in line:
+                print(f'nvcc {name}: {line.strip()}')
+    print(f'build: {", ".join(os.path.basename(lib._name) for lib in libs)} '
+          f'in {secs:.3f} s')
 
 
 def _fused_inputs(shape, cm, dtype, seed):
@@ -410,6 +477,7 @@ def phase_kernel():
 def _kernel_kind(name):
     low = name.lower()
     for kind, keys in (('fused_bottleneck', ('fused_bottleneck',)),
+                       ('int8_conv', ('int8_conv',)),
                        ('conv', ('conv', 'xmma', 'gemm', 'cutlass', 'sm90_',
                                  'implicit', 'dgrad', 'wgrad')),
                        ('batch_norm', ('batch_norm', 'bn_fw', 'bn_bw',
@@ -441,6 +509,13 @@ def device_profile(fn):
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
                    for e in prof.events() if e.device_type == DeviceType.CUDA
                    and not getattr(e, 'is_user_annotation', False))
+    # the device spans of the port's own ranges (the int8 quantize passes)
+    ranges = {}
+    for e in prof.events():
+        if (e.device_type == DeviceType.CUDA and e.name.startswith('int8_')
+                and getattr(e, 'is_user_annotation', False)):
+            ranges[e.name] = ranges.get(e.name, 0.0) + (
+                e.time_range.end - e.time_range.start) / 1e3
     if not spans:
         return dict(wall_ms=wall_ms, note='the profiler saw no device events')
     by_kind, by_name, busy, end = {}, {}, 0.0, float('-inf')
@@ -462,7 +537,8 @@ def device_profile(fn):
         by_kind_ms={k: v / 1e3 for k, v in sorted(
             by_kind.items(), key=lambda kv: -kv[1])},
         top_kernels_ms=[[n, v / 1e3] for n, v in top],
-        copies={k: dict(count=n, ms=t / 1e3) for k, (n, t) in copies.items()})
+        copies={k: dict(count=n, ms=t / 1e3) for k, (n, t) in copies.items()},
+        ranges_ms=ranges)
 
 
 def compare_with_plain(phase, step, model, video):
@@ -474,13 +550,14 @@ def compare_with_plain(phase, step, model, video):
     test_cfg = model.test_cfg
     model.test_cfg = dict(average_clips=None)
     fb.bottleneck_eval_cuda.launches_by_shape.clear()
+    kernel = fb.bottleneck_eval
     try:
         logits = step(model, video).float().cpu()
         launches = dict(fb.bottleneck_eval_cuda.launches_by_shape)
-        fb.FORCE = 'plain'
+        fb.bottleneck_eval = fb.bottleneck_eval_plain
         plain = step(model, video).float().cpu()
     finally:
-        fb.FORCE = None
+        fb.bottleneck_eval = kernel
         model.test_cfg = test_cfg
     ref_max = plain.abs().max().item()
     err = (logits - plain).abs().max().item()
@@ -2654,8 +2731,9 @@ def expected_fused(model_cfg, frames, hw, batches=1):
     frames of hw^2 through a bottleneck ResNet (strides 1, 2, 2, 2 after the
     stem's 4) launch it once in each block after a stage's first, in each
     stage that no temporal module takes (MVF takes a selected stage's every
-    block, CoST every block after the first: neither fuses). Every other
-    backbone launches nothing."""
+    block, CoST every block after the first: neither fuses) and that
+    ``quant_stages`` leaves unquantized. Every other backbone launches
+    nothing."""
     bb = model_cfg['backbone']
     out = collections.Counter()
     if bb['type'] != 'ResNet' or bb['depth'] < 50:
@@ -2665,11 +2743,13 @@ def expected_fused(model_cfg, frames, hw, batches=1):
     module = model_cfg.get('module_cfg') or {}
     freq = (module.get('mvf_freq', module.get('shift_freq', (1, 1, 1, 1)))
             if module else (0, 0, 0, 0))
+    quant = (bb.get('quant_stages', (1, 1, 1, 1)) if bb.get('quant')
+             else (0, 0, 0, 0))
     side = hw // 4
     for i, n in enumerate(blocks):
         side = side if i == 0 else side // 2
         planes = 64 * 2 ** i
-        if not freq[i]:
+        if not freq[i] and not quant[i]:
             out[('bfloat16', frames, side, side, 4 * planes, planes)] += \
                 (n - 1) * batches
     return out
@@ -3163,6 +3243,406 @@ def phase_family(root, ann):
     return launches
 
 
+def _int8_config(root, name, backbone, ann):
+    """A config inheriting the flagship with the backbone options in
+    ``backbone`` and the test split on ``ann``; its path."""
+    import re
+    text = re.sub(r'\binf\b', "float('inf')", (
+        f'_base_ = {CONFIG!r}\n'
+        f'model = dict(backbone={backbone!r})\n'
+        f'data = dict(test=dict(ann_file={ann!r}, data_root={root!r}))\n'))
+    path = os.path.join(root, f'int8_{name}.py')
+    with open(path, 'w') as f:
+        f.write(text)
+    return path
+
+
+def _int8_model(cfg, ckpt, backbone):
+    """The config's recognizer for per-clip logits (fcn testing), the
+    checkpoint's weights, ``backbone`` options over the config's, on the
+    card in eval mode."""
+    from mvfnet_tpu_torch.tools import test_recognizer as cli
+    from mvfnet_tpu_torch.utils.checkpoint import load_weights
+    model = cli.build_model(cfg, True, None, backbone=backbone)
+    load_weights(model, ckpt)
+    return model.to('cuda').eval()
+
+
+def _rms_rel(got, want):
+    return float(((got - want) ** 2).mean().sqrt()
+                 / (want ** 2).mean().sqrt())
+
+
+def _int8_pass(name, model, video, norm, want, runs=INT8_RUNS):
+    """A warm-up, ``runs`` timed calls and a profiled one of the eval step
+    on ``video``; per-clip logits against ``want`` (rms relative); returns
+    the record (the logits under ``'logits'``)."""
+    import torch
+    from mvfnet_tpu_torch.engine.train_step import make_eval_step
+    from mvfnet_tpu_torch.ops import int8_conv as q8
+    step = make_eval_step(model, norm_cfg=norm)
+    logits = step(model, video).float().cpu()
+    torch.cuda.synchronize()
+    before = _launches_by_shape()
+    q8.int8_conv_cuda.launches_by_shape.clear()
+    secs = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        step(model, video)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    fused = _launches_by_shape() - before
+    int8 = collections.Counter(q8.int8_conv_cuda.launches_by_shape)
+    prof = device_profile(lambda: step(model, video))
+    require('busy_ms' in prof, f'{name} profile: {prof}')
+    require(bool(torch.isfinite(logits).all()), f'{name}: non-finite logits')
+    med = statistics.median(secs)
+    clips = video.shape[1] if video.ndim == 6 else video.shape[1] // 8
+    return dict(
+        case=name, video=list(video.shape), pass_ms=[s * 1e3 for s in secs],
+        clips_per_s=clips / med, device_ms_per_video=prof['busy_ms'],
+        device_idle_share=prof['idle_share'],
+        int8_conv_ms=prof['by_kind_ms'].get('int8_conv', 0.0),
+        quantize_ranges_ms=prof['ranges_ms'],
+        by_kind_ms=prof['by_kind_ms'],
+        rms_vs_reference=None if want is None else _rms_rel(logits, want),
+        fused_launches={'/'.join(map(str, k)): v for k, v in fused.items()},
+        int8_launches=sum(int8.values()), fused=fused, int8=int8,
+        logits=logits)
+
+
+def _int8_flagship(root, ann, counts):
+    """(b), (c), (e), (g): the flagship's dense test under each int8 case,
+    the static cases calibrated through the test CLI; validate_k400 with
+    --quant; a calibrated .msgpack read back; training refused."""
+    import numpy as np
+    import torch
+    from mvfnet_tpu_torch.config import Config
+    from mvfnet_tpu_torch.models.common import quant_buffers
+    from mvfnet_tpu_torch.tools import test_recognizer as cli
+    from mvfnet_tpu_torch.tools import validate_k400
+    from mvfnet_tpu_torch.utils.checkpoint import (load_weights,
+                                                   save_msgpack_checkpoint)
+    from mvfnet_tpu_torch.data import build_dataset
+    ckpt = os.path.join(root, 'mvf_r50_random.pth')
+    cfg = Config.fromfile(CONFIG)
+    # a video the calibration did not see, through the config's test
+    # pipeline (host normalization): the static scales hold on the
+    # distribution they were calibrated on
+    norm = None
+    video = np.asarray(build_dataset(dict(
+        cfg.data['test'], ann_file=ann, data_root=root))[
+            INT8_CALIB_VIDEOS]['img_group'])[None]
+    calib_ann = os.path.join(root, 'test_list_int8.txt')
+    with open(calib_ann, 'w') as f:
+        f.writelines(f'video_{i} {DATA_FRAMES} {i}\n'
+                     for i in range(INT8_CALIB_VIDEOS))
+    base = _int8_model(cfg, ckpt, {})
+    ref = _int8_pass('bf16', base, video, norm, None)
+    print('int8: ' + json.dumps({k: v for k, v in ref.items()
+                                 if k not in ('logits', 'fused', 'int8')}))
+    want = ref.pop('logits')
+    del base
+    torch.cuda.empty_cache()
+    stats, logits, fused = {}, {}, {}
+    for name, over in INT8_CASES.items():
+        cli_s = None
+        if name in INT8_CALIBRATED:
+            config = _int8_config(root, name, over, calib_ann)
+            t0 = time.perf_counter()
+            out, _ = _quiet(cli.main, [config, ckpt, '--fcn_testing',
+                                       '--calib_videos',
+                                       str(INT8_CALIB_VIDEOS)])
+            cli_s = time.perf_counter() - t0
+            require(np.isfinite(out['scores']).all(),
+                    f'{name}: CLI scores not finite')
+            stats[name] = out['quant_stats']
+        model = _int8_model(cfg, ckpt, over)
+        source = INT8_TWIN.get(name, name)
+        if source in stats:
+            with torch.no_grad():
+                for k, v in quant_buffers(model).items():
+                    v.copy_(stats[source][k])
+        rec = _int8_pass(name, model, video, norm, want)
+        counts[name] = rec.pop('int8')
+        logits[name] = rec.pop('logits')
+        fused[name] = rec.pop('fused')
+        model_cfg = dict(cfg.model, backbone=dict(cfg.model['backbone'],
+                                                  **over))
+        expected = expected_fused(model_cfg, VIEWS * TRAIN_BATCH[1], CROP,
+                                  INT8_RUNS)
+        rec.update(quant=over, calib_videos=(INT8_CALIB_VIDEOS if cli_s
+                                             else None), cli_s=cli_s,
+                   fused_expected={'/'.join(map(str, k)): v
+                                   for k, v in expected.items()},
+                   card=card_line())
+        if name in INT8_TWIN:
+            rec['rms_vs_unfused'] = _rms_rel(logits[name],
+                                             logits[INT8_TWIN[name]])
+        print('int8: ' + json.dumps(rec))
+        require(rec['rms_vs_reference'] < 5e-2,
+                f'{name}: int8 logits {rec["rms_vs_reference"]} of the bf16 '
+                f'ones (rms)')
+        require(rec.get('rms_vs_unfused', 0) < 2e-2,
+                f'{name}: carry against unfused {rec.get("rms_vs_unfused")}')
+        require(fused[name] == expected, f'{name}: fused launches '
+                                         f'{dict(fused[name])}, expected '
+                                         f'{dict(expected)}')
+        require(counts[name], f'{name}: no int8 kernel launch')
+        if name == INT8_MSGPACK:                                    # (e)
+            path = os.path.join(root, f'int8_{name}.msgpack')
+            save_msgpack_checkpoint(path, model)
+            fresh = _int8_model(cfg, ckpt, over)
+            load_weights(fresh, path)
+            from mvfnet_tpu_torch.engine.train_step import make_eval_step
+            again = make_eval_step(fresh, norm_cfg=norm)(
+                fresh, video).float().cpu()
+            err = float((again - logits[name]).abs().max())
+            print('int8: ' + json.dumps(dict(
+                case=f'{name}_msgpack', bytes=os.path.getsize(path),
+                max_abs_err=err, card=card_line())))
+            require(err <= 1e-5, f'{name}: .msgpack logits {err} apart')
+            del fresh
+        del model
+        torch.cuda.empty_cache()
+    # (c) validate_k400 on the 8 videos
+    out = os.path.join(root, 'verdict_int8.json')
+    t0 = time.perf_counter()
+    code, _ = _quiet(validate_k400.main, [
+        '--checkpoint', ckpt, '--ann', ann, '--data-root', root,
+        '--config', CONFIG, '--quant', 'int8_static', '--quant-stages',
+        '1', '1', '0', '0', '--calib-videos', str(INT8_CALIB_VIDEOS),
+        '--out', out])
+    secs = time.perf_counter() - t0
+    with open(out) as f:
+        verdict = json.load(f)
+    print(json.dumps(verdict))
+    print('int8: ' + json.dumps(dict(case='validate_k400', pass_s=secs,
+                                     videos_per_s=DATA_VIDEOS / secs,
+                                     exit_code=code, card=card_line())))
+    require(verdict['quant'] == 'int8_static'
+            and verdict['n_videos'] == DATA_VIDEOS
+            and code == (1 if verdict['pass'] is False else 0),
+            f'validate_k400 --quant: {verdict}, exit code {code}')
+    # (g) training refused
+    model = cli.build_model(cfg, True, None,
+                            backbone=dict(quant='int8')).to('cuda').train()
+    try:
+        model(torch.zeros(1, 8, 64, 64, 3, device='cuda'), None,
+              return_loss=False)
+        refused = False
+    except ValueError as e:
+        refused = 'eval-only' in str(e)
+    require(refused, 'quant with training did not raise')
+    del model
+    return fused
+
+
+def _int8_3d(root, counts):
+    """(d) the shipped I3D config with int8_static (calibrated on the video
+    it scores) and the X3D config with int8: one dense video each against
+    the same weights in bf16."""
+    import numpy as np
+    import torch
+    from mvfnet_tpu_torch.config import Config
+    from mvfnet_tpu_torch.engine.train_step import make_eval_step
+    for name, quant in (('i3d', 'int8_static'), ('x3d', 'int8')):
+        cfg = Config.fromfile(CONFIGS_3D[name])
+        ckpt = os.path.join(root, f'{name}_random.pth')
+        sample = [op for op in cfg.data['test']['pipeline']
+                  if op['type'] == 'SampleFrames'][0]
+        video = np.random.RandomState(1).randint(
+            0, 256, (1, sample['num_clips'] * 3, sample['clip_len'], 256,
+                     256, 3), dtype=np.uint8)
+        norm = dict(cfg.img_norm_cfg, device=True)
+        base = _int8_model(cfg, ckpt, {})
+        with torch.inference_mode():
+            want = make_eval_step(base, norm_cfg=norm)(
+                base, video).float().cpu()
+        del base
+        model = _int8_model(cfg, ckpt, dict(quant=quant))
+        if quant == 'int8_static':
+            with model.calibrate():
+                make_eval_step(model, norm_cfg=norm)(model, video)
+        rec = _int8_pass(f'{name}_{quant}', model, video, norm, want, runs=1)
+        counts[name] = rec.pop('int8')
+        rec.pop('logits')
+        fused = rec.pop('fused')
+        rec.update(card=card_line())
+        print('int8: ' + json.dumps(rec))
+        require(rec['rms_vs_reference'] < 5e-2,
+                f'{name}: int8 logits {rec["rms_vs_reference"]} of bf16')
+        require(not fused and counts[name],
+                f'{name}: fused {dict(fused)}, int8 {dict(counts[name])}')
+        del model
+        torch.cuda.empty_cache()
+
+
+def _new_backbones():
+    """(f) R(2+1)D-34 and InceptionV1-I3D: a train step at their clips
+    (median of TRAIN_STEPS after TRAIN_WARMUP), a dense video's device
+    time, one view against the fp32 CPU forward."""
+    import numpy as np
+    import torch
+    from mvfnet_tpu_torch.config import Config
+    from mvfnet_tpu_torch.models import build_recognizer
+    cfg = Config.fromfile(CONFIGS_3D['i3d'])
+    norm = dict(cfg.img_norm_cfg, device=True)
+    for name, (backbone, width, frames, crop, batch) in NEW_3D.items():
+        model_cfg = dict(
+            type='Recognizer3D', backbone=backbone, dtype='bfloat16',
+            cls_head=dict(type='I3DClsHead', spatial_size=-1,
+                          temporal_size=-1, dropout_ratio=0.5,
+                          in_channels=width, num_classes=400))
+        cfg.model = dict(model_cfg)
+        model = build_recognizer(dict(model_cfg),
+                                 test_cfg=dict(average_clips=None))
+        model.init_weights(torch.Generator().manual_seed(0),
+                           randomize_bn=True)
+        model.to('cuda')
+        step = _family_step(model, cfg)
+        gen = torch.Generator(device='cuda').manual_seed(0)
+        shape = (batch, 1, frames, crop, crop, 3)
+        batches = [(np.random.RandomState(s).randint(0, 256, shape,
+                                                     dtype=np.uint8),
+                    np.random.RandomState(100 + s).randint(0, 400, batch))
+                   for s in range(TRAIN_WARMUP + TRAIN_STEPS)]
+        losses = [step(*b, gen)['loss'].item()
+                  for b in batches[:TRAIN_WARMUP]]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        secs = []
+        for b in batches[TRAIN_WARMUP:]:
+            t0 = time.perf_counter()
+            losses.append(step(*b, gen)['loss'].item())
+            secs.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        del step
+        model.eval()
+        video = np.random.RandomState(2).randint(
+            0, 256, (1, 30, frames, crop, crop, 3), dtype=np.uint8)
+        rec = _int8_pass(name, model, video, norm, None, runs=1)
+        for k in ('logits', 'fused', 'int8', 'rms_vs_reference'):
+            rec.pop(k)
+        one = _view_against_cpu(name, model, model_cfg, video[:, :1], norm)
+        rec.update(kind='new_backbone', train_batch=list(shape),
+                   loss=losses, step_ms=[s * 1e3 for s in secs],
+                   median_step_ms=statistics.median(secs) * 1e3,
+                   max_memory_allocated_gib=peak, one_view_vs_cpu_fp32=one,
+                   card=card_line())
+        print('family12: ' + json.dumps(rec))
+        require(all(np.isfinite(losses)), f'{name}: losses {losses}')
+        del model
+        torch.cuda.empty_cache()
+
+
+def _int8_key_str(key):
+    return '/'.join(map(str, key))
+
+
+def _int8_kernel_records(counts):
+    """(a) the int8 kernel at every distinct shape (b) and (d) launched:
+    its int32 accumulators and its epilogue equal the plain version's
+    (``torch.equal``, N cut to INT8_CHECK_N for the f64 plain version), its
+    median ms and the plain version's at the full shape, the bound and,
+    at the 1x1 stride-1 shapes, ``torch._int_mm``'s time."""
+    import torch
+    from mvfnet_tpu_torch.ops import int8_conv as q8
+    total = collections.Counter()
+    by_case = collections.defaultdict(dict)
+    for case, c in counts.items():
+        for k, n in c.items():
+            total[k] += n
+            by_case[k][case] = n
+    records = []
+    for i, (key, n) in enumerate(sorted(total.items(), key=str)):
+        nb, t, h, w, cin, cout, kernel, stride, pad, dil, epi = key
+        padding = tuple((p, p) for p in pad)
+        g = torch.Generator(device='cuda').manual_seed(1000 + i)
+        x = torch.randint(-127, 128, (nb, t, h, w, cin), generator=g,
+                          device='cuda', dtype=torch.int8)
+        wq = torch.randint(-127, 128, tuple(kernel) + (cin, cout),
+                           generator=g, device='cuda', dtype=torch.int8)
+        scale = torch.rand(cout, generator=g, device='cuda') * 1e-4 + 1e-6
+        bias = torch.randn(cout, generator=g, device='cuda')
+        out_dtype = None if epi == 'int32' else getattr(torch, epi)
+        args = (stride, padding, dil) + ((scale, None, out_dtype)
+                                         if out_dtype else ())
+        cut = x[:INT8_CHECK_N]
+        with torch.inference_mode():
+            got = q8.int8_conv_cuda(cut, wq, stride, padding, dil)
+            want = q8.int8_conv_plain(cut, wq, stride, padding, dil)
+            equal = torch.equal(got, want)
+            err = float((got.double() - want.double()).abs().max())
+            for dt in (torch.bfloat16, torch.float32):
+                equal &= torch.equal(
+                    q8.int8_conv_cuda(cut, wq, stride, padding, dil, scale,
+                                      bias, dt),
+                    q8.int8_conv_plain(cut, wq, stride, padding, dil, scale,
+                                       bias, dt))
+            torch.cuda.synchronize()
+            del got, want
+            ms = median_ms(lambda: q8.int8_conv_cuda(x, wq, *args), runs=10,
+                           warmup=2)
+            plain_ms = median_ms(lambda: q8.int8_conv_plain(x, wq, *args),
+                                 runs=3, warmup=1)
+            lib_ms = note = None
+            if (tuple(kernel) == (1, 1, 1) and tuple(stride) == (1, 1, 1)
+                    and cin % 8 == 0 and cout % 8 == 0):
+                a = x.reshape(-1, cin)
+                b = wq.reshape(cin, cout).t().contiguous().t()
+                try:
+                    lib_ms = median_ms(lambda: torch._int_mm(a, b), runs=10,
+                                       warmup=2)
+                except RuntimeError as e:
+                    note = str(e).splitlines()[0][:120]
+        torch.cuda.empty_cache()
+        to = (t + 2 * pad[0] - dil[0] * (kernel[0] - 1) - 1) // stride[0] + 1
+        ho = (h + 2 * pad[1] - dil[1] * (kernel[1] - 1) - 1) // stride[1] + 1
+        wo = (w + 2 * pad[2] - dil[2] * (kernel[2] - 1) - 1) // stride[2] + 1
+        k = kernel[0] * kernel[1] * kernel[2] * cin
+        m = nb * to * ho * wo
+        ops = 2 * m * k * cout
+        out_bytes = m * cout * (4 if epi in ('int32', 'float32') else 2)
+        nbytes = x.numel() + wq.numel() + out_bytes + (
+            0 if epi == 'int32' else 4 * cout)
+        t_ops = ops / INT8_PEAK_OPS * 1e3
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        rec = dict(INT8_KERNEL, case=_int8_key_str(key),
+                   shape=dict(x=[nb, t, h, w, cin], w=list(kernel) + [cin,
+                                                                     cout],
+                              stride=list(stride), padding=list(pad),
+                              dilation=list(dil), epilogue=epi),
+                   launches=n, launches_by_case=by_case[key],
+                   max_abs_err=err, equal=bool(equal), check_n=min(
+                       nb, INT8_CHECK_N), ms=ms, plain_ms=plain_ms,
+                   bound_ms=max(t_ops, t_bytes),
+                   bound_by='bytes' if t_bytes >= t_ops else 'operations',
+                   ops=ops, bytes=nbytes, library_ms=lib_ms)
+        if note:
+            rec['library_note'] = note
+        print('int8 kernel: ' + json.dumps(rec))
+        require(equal, f'int8_conv {rec["case"]}: the kernel differs from '
+                       f'its plain version')
+        records.append(rec)
+        del x, wq
+    return records
+
+
+def phase_int8(root, ann):
+    """Phase 12, the int8 eval path and the last two 3-D backbones, in
+    ``root`` beside phase 5's videos and phase 10's checkpoints: returns
+    the int8 kernel's records and the fused launches by case."""
+    t0 = time.perf_counter()
+    counts = {}
+    fused = _int8_flagship(root, ann, counts)
+    _int8_3d(root, counts)
+    records = _int8_kernel_records(counts)
+    _new_backbones()
+    print(f'phase 12: {time.perf_counter() - t0:.3f} s')
+    return records, fused
+
+
 def phase_rawframes():
     """Phases 5-8 on one rawframe dataset in a temporary directory, then
     phase 9 on the same frames as video files and phases 10 and 11 on the
@@ -3186,8 +3666,10 @@ def phase_rawframes():
         video_launches = phase_video(root)
         launches_3d = phase_3d(root)
         launches_2d = phase_family(root, ann)
+        int8_records, launches_int8 = phase_int8(root, ann)
         return (data_launches, train_launches, feature_launches,
-                dist_launches, video_launches, launches_3d, launches_2d)
+                dist_launches, video_launches, launches_3d, launches_2d,
+                int8_records, launches_int8)
 
 
 def main():
@@ -3218,7 +3700,7 @@ def main():
         phase_train()
         (data_launches, train_launches, feature_launches,
          dist_launches, video_launches, launches_3d,
-         launches_2d) = phase_rawframes()
+         launches_2d, int8_records, launches_int8) = phase_rawframes()
         for r in records:
             key = (r['dtype'],) + tuple(r['shape'])
             r['launches'] = launches.get(key, 0)
@@ -3235,6 +3717,9 @@ def main():
             r['launches_3d'] = dict(launches_3d)
             r['launches_2d'] = {case: n.get(key, 0)
                                 for case, n in launches_2d.items()}
+            r['launches_int8'] = {case: n.get(key, 0)
+                                  for case, n in launches_int8.items()}
+        records += int8_records
     except SmokeFailure as e:
         print(f'chip_smoke: FAILED: {e}', file=sys.stderr)
         return 1

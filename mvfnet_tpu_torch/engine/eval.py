@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ..data import DataLoader, ShardedSampler
+from ..models.common import check_quant_calibrated, quant_calibration
 from ..parallel import all_gather_rows, world_rank
 from .prefetch import prefetch_to_device
 from .train_step import make_eval_step, resolve_device
@@ -40,11 +41,10 @@ def evaluate_dataset(model: torch.nn.Module, dataset,
 
     ``norm_cfg`` is the pipeline's ``Normalize(device=True)`` node
     (``data.device_norm_cfg``), None when the host normalizes. ``device``
-    is CUDA unless the caller asks for the CPU.
+    is CUDA unless the caller asks for the CPU. An ``int8_static`` model
+    must be calibrated (``models.common.check_quant_calibrated``).
     """
-    if getattr(getattr(model, 'backbone', None), 'quant', None):
-        raise NotImplementedError('quantized backbones are not ported yet '
-                                  '(ROADMAP.md, A14)')
+    check_quant_calibrated(model)
     device = resolve_device(device)
     world, rank = world_rank()
     sampler = ShardedSampler(len(dataset), world, rank, shuffle=False,
@@ -94,6 +94,24 @@ def evaluate_dataset(model: torch.nn.Module, dataset,
         return reorder_rank_strided(all_gather_rows(scores).cpu().numpy(),
                                     world, len(dataset))
     return scores.cpu().numpy()[:len(dataset)]
+
+
+def calibrate_quant(model: torch.nn.Module, dataset, videos: int,
+                    norm_cfg: Optional[Dict[str, Any]] = None,
+                    device: Union[None, str, torch.device] = None) -> int:
+    """Record an ``int8_static`` model's activation abs-max on the dataset's
+    first ``videos`` videos, one at a time through the eval step (the root
+    ``test_recognizer.py:97-113`` loop, the JAX model applied with
+    ``mutable=['quant_stats']``); returns how many it used, 0 for a model
+    that is not ``int8_static``."""
+    if getattr(model.backbone, 'quant', None) != 'int8_static':
+        return 0
+    step = make_eval_step(model, norm_cfg, resolve_device(device))
+    n = min(videos, len(dataset))
+    with quant_calibration(model):
+        for i in range(n):
+            step(model, np.asarray(dataset[i]['img_group'])[None])
+    return n
 
 
 def _freeze(obj):

@@ -36,9 +36,10 @@ import torch
 
 from ..data import build_dataloader, build_dataset, device_norm_cfg
 from ..parallel import barrier, is_main_process, world_rank
-from ..utils.checkpoint import (import_torch_state_dict, load_checkpoint,
-                                load_optax_state, load_torch_state_dict,
-                                load_weights, save_checkpoint)
+from ..utils.checkpoint import (import_torch_state_dict, is_quant_stat,
+                                load_checkpoint, load_optax_state,
+                                load_torch_state_dict, load_weights,
+                                save_checkpoint)
 from ..utils.logging import get_root_logger
 from ..utils.metrics import top_k_accuracy
 from .optim import (build_lr_schedule, build_optimizer,
@@ -283,7 +284,10 @@ class TrainLoop:
         from the sidecar, as ``mvfnet_tpu/engine/train_loop.py:296-309``
         resumes)."""
         state_dict, opt_state, meta = load_checkpoint(path)
-        self.model.load_state_dict(state_dict, strict=True)
+        # a .msgpack's quant_stats are not training state: the JAX loop
+        # restores params and batch_stats alone
+        self.model.load_state_dict({k: v for k, v in state_dict.items()
+                                    if not is_quant_stat(k)}, strict=True)
         step = meta.get('iter', 0)
         if opt_state and path.endswith('.msgpack'):
             load_optax_state(self.model, self.optimizer, opt_state, step)

@@ -19,8 +19,8 @@ BatchNorm and without a downsample or temporal module (MVF, CoST) folds
 its three BatchNorms into the conv weights and runs as one fused call,
 ``ops.fused_block.bottleneck_eval``: the hand-written CUDA kernel on the
 card, its plain version on the CPU; a block a non-local block follows
-fuses too. BasicBlocks, GroupNorm blocks and avd blocks take the plain
-path, as in the JAX package.
+fuses too. BasicBlocks, GroupNorm blocks, avd blocks and quantized blocks (``quant``,
+the int8 eval path) take the plain path, as in the JAX package.
 
 ``with_cp`` (activation checkpointing) runs each res-stage through
 ``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)`` while the
@@ -45,9 +45,11 @@ from torch.utils.checkpoint import checkpoint
 
 from ...ops import fused_block as fb
 from ..builder import BACKBONES
-from ..common import (BatchNorm, avg_pool_torch, conv2d,
+from ..common import (BatchNorm, QuantConv2d, avg_pool_torch,
+                      bn_affine, check_quant_stages, conv2d,
                       frozen_norm_statistics, lecun_normal_, make_norm,
-                      max_pool_same_as_torch, to_nchw, to_nhwc)
+                      max_pool_same_as_torch, refuse_quant_training, to_nchw,
+                      to_nhwc)
 from ..modules.cost import CoST
 from ..modules.mvf import MVF
 from ..modules.nonlocal_attention import (LocalAttention, NonLocal2D,
@@ -61,11 +63,12 @@ class Downsample(nn.Sequential):
     skipped (reference ``make_res_layer``)."""
 
     def __init__(self, inplanes: int, outplanes: int, stride: int,
-                 dilation: int, avg_down: bool, norm_cfg: Optional[Dict]):
+                 dilation: int, avg_down: bool, norm_cfg: Optional[Dict],
+                 quant: Optional[str] = None):
         self.pool_stride = stride if (avg_down and dilation == 1) else 1
         super().__init__(
             conv2d(inplanes, outplanes, 1,
-                   stride=1 if avg_down else stride),
+                   stride=1 if avg_down else stride, quant=quant),
             make_norm(norm_cfg, outplanes))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -77,6 +80,16 @@ class Downsample(nn.Sequential):
 
 def _is_cost(temporal_cfg: Optional[Dict]) -> bool:
     return bool(temporal_cfg) and temporal_cfg.get('type') == 'CoST'
+
+
+def _mvf_split(temporal_cfg: Optional[Dict], inplanes: int,
+               quant: Optional[str]) -> int:
+    """The MVF channels a quantized bottleneck's conv1 scales apart from the
+    rest (JAX ``_SplitPointwiseConv``), 0 for an unquantized or MVF-less
+    block."""
+    if not quant or not temporal_cfg or temporal_cfg.get('type') != 'MVF':
+        return 0
+    return int(inplanes * temporal_cfg.get('alpha', 0.5))
 
 
 def _wrap_temporal(conv: nn.Module, temporal_cfg: Optional[Dict],
@@ -103,7 +116,8 @@ class BasicBlock(nn.Module):
                  dilation: int = 1, with_downsample: bool = False,
                  style: str = 'pytorch', norm_cfg: Optional[Dict] = None,
                  avg_down: bool = False,
-                 temporal_cfg: Optional[Dict] = None):
+                 temporal_cfg: Optional[Dict] = None,
+                 quant: Optional[str] = None):
         super().__init__()
         if style not in ('pytorch', 'caffe'):
             raise ValueError(f'style {style!r}')
@@ -113,12 +127,12 @@ class BasicBlock(nn.Module):
                 'bottlenecks (ROADMAP.md, section C)')
         self.conv1 = _wrap_temporal(
             conv2d(inplanes, planes, 3, stride=stride, padding=dilation,
-                   dilation=dilation), temporal_cfg, inplanes)
+                   dilation=dilation, quant=quant), temporal_cfg, inplanes)
         self.bn1 = make_norm(norm_cfg, planes)
-        self.conv2 = conv2d(planes, planes, 3, padding=1)
+        self.conv2 = conv2d(planes, planes, 3, padding=1, quant=quant)
         self.bn2 = make_norm(norm_cfg, planes)
         self.downsample = (Downsample(inplanes, planes, stride, dilation,
-                                      avg_down, norm_cfg)
+                                      avg_down, norm_cfg, quant)
                            if with_downsample else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -135,7 +149,14 @@ class Bottleneck(nn.Module):
 
     ``avd`` (with ``stride > 1`` only): the 3x3 conv keeps stride 1 and an
     ``AvgPool2d(3, stride, padding=1)`` strides instead, after the second
-    relu, or after the first with ``avd_first``."""
+    relu, or after the first with ``avd_first``.
+
+    ``quant`` makes the convs int8 (CoST and MVF's taps stay in the
+    compute dtype; an MVF-wrapped conv1 scales the MVF channels apart from
+    the rest). ``quant_carry`` with ``int8_static`` runs conv1 -> conv2 ->
+    conv3 as the integer carry (``common.IntCarry``) outside calibration,
+    in blocks without avd or a temporal module whose norms are
+    BatchNorms."""
     expansion = 4
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
@@ -143,10 +164,13 @@ class Bottleneck(nn.Module):
                  style: str = 'pytorch', norm_cfg: Optional[Dict] = None,
                  avg_down: bool = False, avd: bool = False,
                  avd_first: bool = False,
-                 temporal_cfg: Optional[Dict] = None):
+                 temporal_cfg: Optional[Dict] = None,
+                 quant: Optional[str] = None, quant_carry: bool = False):
         super().__init__()
         if style not in ('pytorch', 'caffe'):
             raise ValueError(f'style {style!r}')
+        self.quant = quant
+        self.quant_carry = quant_carry
         self.stride = stride
         self.dilation = dilation
         self.style = style
@@ -157,42 +181,58 @@ class Bottleneck(nn.Module):
                                       else (conv_stride, 1))
         self.has_temporal = temporal_cfg is not None
         self.conv1 = _wrap_temporal(
-            conv2d(inplanes, planes, 1, stride=conv1_stride), temporal_cfg,
-            inplanes)
+            conv2d(inplanes, planes, 1, stride=conv1_stride, quant=quant,
+                   split=_mvf_split(temporal_cfg, inplanes, quant)),
+            temporal_cfg, inplanes)
         self.bn1 = make_norm(norm_cfg, planes)
         if _is_cost(temporal_cfg):
             # CoST replaces conv2 (the reference's make_CoST)
             self.conv2 = CoST(temporal_cfg['n_segment'], planes)
         else:
             self.conv2 = conv2d(planes, planes, 3, stride=conv2_stride,
-                                padding=dilation, dilation=dilation)
+                                padding=dilation, dilation=dilation,
+                                quant=quant)
         self.bn2 = make_norm(norm_cfg, planes)
-        self.conv3 = conv2d(planes, planes * self.expansion, 1)
+        self.conv3 = conv2d(planes, planes * self.expansion, 1, quant=quant)
         self.bn3 = make_norm(norm_cfg, planes * self.expansion)
         self._fused = None      # (key, folded weights), see _fused_weights
         self.downsample = (Downsample(inplanes, planes * self.expansion,
-                                      stride, dilation, avg_down, norm_cfg)
+                                      stride, dilation, avg_down, norm_cfg,
+                                      quant)
                            if with_downsample else None)
 
     @property
     def fusable(self) -> bool:
         """Shapes the fused eval kernel computes: stride 1 (so no avd), no
         downsample, no temporal module (MVF or CoST), pytorch style,
-        dilation 1, and
-        BatchNorms whose running statistics fold into the weights."""
+        dilation 1, not quantized (the kernel computes in the compute
+        dtype), and BatchNorms whose running statistics fold into the
+        weights."""
         return (self.stride == 1 and self.downsample is None
                 and not self.has_temporal and self.style == 'pytorch'
-                and self.dilation == 1
+                and self.dilation == 1 and self.quant is None
                 and all(isinstance(bn, BatchNorm)
                         for bn in (self.bn1, self.bn2, self.bn3)))
 
     def _avd(self, out: torch.Tensor) -> torch.Tensor:
         return avg_pool_torch(out, 3, self.stride, padding=1)
 
+    @property
+    def uses_carry(self) -> bool:
+        """Whether this block runs the integer carry (JAX
+        ``resnet.py:131-134``)."""
+        return (self.quant == 'int8_static' and self.quant_carry
+                and not self.avd and not self.has_temporal
+                and not self.conv1.calibrating
+                and all(isinstance(bn, BatchNorm)
+                        for bn in (self.bn1, self.bn2)))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if (self.fusable and not self.training
                 and not torch.is_grad_enabled()):
             return self._forward_fused(x)
+        if self.uses_carry:
+            return self._forward_carry(x)
         identity = x
         out = torch.relu(self.bn1(self.conv1(x)))
         if self.avd and self.avd_first:
@@ -203,6 +243,16 @@ class Bottleneck(nn.Module):
         out = self.bn3(self.conv3(out))
         if self.downsample is not None:
             identity = self.downsample(x)
+        return torch.relu(out + identity)
+
+    def _forward_carry(self, x: torch.Tensor) -> torch.Tensor:
+        """conv1 -> conv2 -> conv3 exchanging int8: each BN affine and ReLU
+        folded into the next conv's requantization."""
+        out = self.conv1(x, carry_out=True)
+        out = self.conv2(out, prev_affine=bn_affine(self.bn1),
+                         carry_out=True)
+        out = self.bn3(self.conv3(out, prev_affine=bn_affine(self.bn2)))
+        identity = x if self.downsample is None else self.downsample(x)
         return torch.relu(out + identity)
 
     def train(self, mode: bool = True):
@@ -266,6 +316,13 @@ class ResNet(nn.Module):
     and ``norm_frozen`` freeze parameters in the optimizer, not here
     (``engine.optim.frozen_prefixes_from_backbone``); ``frozen_stages`` also
     picks the stages that ``partial_norm`` keeps in eval mode.
+
+    ``quant='int8'|'int8_static'`` is the eval-only int8 path of the block
+    convs (``common.QuantConv2d``) in the stages ``quant_stages`` selects;
+    ``quant_carry`` runs the integer carry in ``int8_static`` bottlenecks
+    and ``quant_stem`` quantizes the 7x7 stem too (with ``stem_s2d``, as
+    the JAX package quantizes only its space-to-depth stem). The state
+    dict is the unquantized model's; training raises.
     """
     arch_settings = {
         18: (BasicBlock, (2, 2, 2, 2)),
@@ -289,10 +346,15 @@ class ResNet(nn.Module):
                  temporal_cfg: Optional[Dict] = None,
                  temporal_freq: Sequence[int] = (0, 0, 0, 0),
                  nonlocal_cfg: Optional[Dict] = None,
-                 pretrained: Optional[str] = None, with_cp: bool = False):
+                 pretrained: Optional[str] = None, with_cp: bool = False,
+                 quant: Optional[str] = None,
+                 quant_stages: Sequence[int] = (1, 1, 1, 1),
+                 quant_carry: bool = False, quant_stem: bool = False):
         super().__init__()
         if depth not in self.arch_settings:
             raise KeyError(f'invalid depth {depth} for resnet')
+        check_quant_stages(quant, quant_stages, num_stages)
+        self.quant = quant
         block_cls, stage_blocks = self.arch_settings[depth]
         self.out_indices = tuple(out_indices)
         self.norm_eval = norm_eval
@@ -309,13 +371,19 @@ class ResNet(nn.Module):
             self.stem_bn2 = make_norm(norm_cfg, sw)
             self.stem_conv3 = conv2d(sw, 2 * sw, 3, padding=1)
             inplanes = 2 * sw
+        elif quant and quant_stem and stem_s2d:
+            self.conv1 = QuantConv2d(in_channels, 64, 7, stride=2,
+                                     padding=3, bias=False, quant=quant,
+                                     stem=True)
+            inplanes = 64
         else:
             self.conv1 = conv2d(in_channels, 64, 7, stride=2, padding=3)
             inplanes = 64
         self.bn1 = make_norm(norm_cfg, inplanes)
         self.maxpool = max_pool_same_as_torch(3, 2, 1)
         self.num_stages = num_stages
-        block_opts = (dict(avd=avd, avd_first=avd_first)
+        block_opts = (dict(avd=avd, avd_first=avd_first,
+                           quant_carry=quant_carry)
                       if block_cls is Bottleneck else {})
         for i, num_blocks in enumerate(stage_blocks[:num_stages]):
             planes = 64 * 2 ** i
@@ -336,6 +404,7 @@ class ResNet(nn.Module):
                     avg_down=avg_down,
                     temporal_cfg=(None if j == 0 and _is_cost(stage_temporal)
                                   else stage_temporal),
+                    quant=quant if quant and quant_stages[i] else None,
                     **block_opts)
                 inplanes = planes * block_cls.expansion
                 if j in nl_blocks:
@@ -389,6 +458,7 @@ class ResNet(nn.Module):
 
     def forward(self, x: torch.Tensor):
         """x: (N, C, H, W), any memory format; returns channels_last maps."""
+        refuse_quant_training(self.quant, self.training)
         x = self._stem(x.contiguous(memory_format=torch.channels_last))
         remat = self.with_cp and self.training and torch.is_grad_enabled()
         outs = []

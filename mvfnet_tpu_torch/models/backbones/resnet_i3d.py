@@ -26,7 +26,11 @@ runs the plain conv. ``nonlocal_cfg`` puts a non-local block
 (``modules.nonlocal_attention.build_nonlocal_block``) after each
 bottleneck that ``nonlocal_stages`` and ``nonlocal_freq`` pick, as
 ``layer{i}.{j}.nonlocal_block``; a ``BasicBlock3D`` accepts and ignores
-it, as in the JAX module. The int8 path (``quant``) raises.
+it, as in the JAX module. ``quant='int8'|'int8_static'`` is the eval-only
+int8 path (``common.QuantConv3d``) of the block convs whose type
+(``common.quant_conv3d_type``) ``quant_ops`` lists, default the spatial
+ones, in the stages ``quant_stages`` selects; shortcuts and the stem stay
+in the compute dtype, and training raises.
 """
 
 from __future__ import annotations
@@ -39,18 +43,19 @@ import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
 from ..builder import BACKBONES
-from ..common import (BatchNorm, avg_pool3d, conv3d, lecun_normal_,
-                      make_norm, max_pool3d)
+from ..common import (BatchNorm, avg_pool3d, check_quant_stages, conv3d,
+                      lecun_normal_, make_norm, max_pool3d,
+                      quant_conv3d_type, refuse_quant_training)
 from ..modules.nonlocal_attention import build_nonlocal_block
 from .resnet import _recompute_contexts
 
 
-def refuse_unported(quant=None) -> None:
-    """The 3-D backbones' options whose modules the port does not have
-    yet."""
-    if quant:
-        raise NotImplementedError('quantized backbones are not ported yet '
-                                  '(ROADMAP.md, A14)')
+def quant_for(quant, quant_ops, kernel):
+    """The quant mode of a block conv with ``kernel``: ``quant`` where its
+    type is in ``quant_ops``, else None."""
+    if quant and quant_conv3d_type(tuple(kernel)) in quant_ops:
+        return quant
+    return None
 
 
 class Downsample3D(nn.Sequential):
@@ -93,7 +98,9 @@ class Bottleneck3D(nn.Module):
                  if_inflate: bool = True, inflate_style: str = '3x1x1',
                  norm_cfg: Optional[Dict] = None, avg_down: bool = False,
                  avd: bool = False, avd_first: bool = False,
-                 nonlocal_cfg: Optional[Dict] = None):
+                 nonlocal_cfg: Optional[Dict] = None,
+                 quant: Optional[str] = None,
+                 quant_ops: Sequence[str] = ('spatial',)):
         super().__init__()
         if style not in ('pytorch', 'caffe'):
             raise ValueError(f'style {style!r}')
@@ -117,12 +124,14 @@ class Bottleneck3D(nn.Module):
             k1, p1, k2, p2 = (1, 1, 1), (0, 0, 0), (1, 3, 3), (0, d, d)
             c1_t = c2_t = 1
         self.conv1 = conv3d(inplanes, planes, k1, stride=(c1_t, c1_s, c1_s),
-                            padding=p1)
+                            padding=p1, quant=quant_for(quant, quant_ops, k1))
         self.bn1 = make_norm(norm_cfg, planes)
         self.conv2 = conv3d(planes, planes, k2, stride=(c2_t, c2_s, c2_s),
-                            padding=p2, dilation=(1, d, d))
+                            padding=p2, dilation=(1, d, d),
+                            quant=quant_for(quant, quant_ops, k2))
         self.bn2 = make_norm(norm_cfg, planes)
-        self.conv3 = conv3d(planes, planes * self.expansion, (1, 1, 1))
+        self.conv3 = conv3d(planes, planes * self.expansion, (1, 1, 1),
+                            quant=quant_for(quant, quant_ops, (1, 1, 1)))
         self.bn3 = make_norm(norm_cfg, planes * self.expansion)
         self.downsample = (Downsample3D(inplanes, planes * self.expansion,
                                         spatial_stride, temporal_stride,
@@ -162,15 +171,18 @@ class BasicBlock3D(nn.Module):
                  if_inflate: bool = True, inflate_style: str = '3x1x1',
                  norm_cfg: Optional[Dict] = None, avg_down: bool = False,
                  avd: bool = False, avd_first: bool = False,
-                 nonlocal_cfg: Optional[Dict] = None):
+                 nonlocal_cfg: Optional[Dict] = None,
+                 quant: Optional[str] = None,
+                 quant_ops: Sequence[str] = ('spatial',)):
         super().__init__()
         ss, ts, d = spatial_stride, temporal_stride, dilation
         k = (3, 3, 3) if if_inflate else (1, 3, 3)
         p = (1, d, d) if if_inflate else (0, d, d)
+        q = quant_for(quant, quant_ops, k)
         self.conv1 = conv3d(inplanes, planes, k, stride=(ts, ss, ss),
-                            padding=p)
+                            padding=p, quant=q)
         self.bn1 = make_norm(norm_cfg, planes)
-        self.conv2 = conv3d(planes, planes, k, padding=p)
+        self.conv2 = conv3d(planes, planes, k, padding=p, quant=q)
         self.bn2 = make_norm(norm_cfg, planes)
         self.downsample = (Downsample3D(inplanes, planes, ss, ts, d, False,
                                         norm_cfg)
@@ -291,7 +303,8 @@ class ResNet_I3D(nn.Module):
         super().__init__()
         if depth not in ARCH_SETTINGS:
             raise KeyError(f'invalid depth {depth} for resnet_i3d')
-        refuse_unported(quant)
+        check_quant_stages(quant, quant_stages, num_stages)
+        self.quant = quant
         block_cls, stage_blocks = ARCH_SETTINGS[depth]
         self.num_stages = num_stages
         self.out_indices = tuple(out_indices)
@@ -331,7 +344,9 @@ class ResNet_I3D(nn.Module):
                 block_cls, inplanes, 64 * 2 ** i, num_blocks,
                 spatial_strides[i], temporal_strides[i], dilations[i],
                 inflate[i], nonlocal_cfgs=[nl_cfg if f == 1 else None
-                                           for f in nl], **block_opts)
+                                           for f in nl],
+                quant=quant if quant and quant_stages[i] else None,
+                quant_ops=tuple(quant_ops), **block_opts)
             self.add_module(f'layer{i + 1}', layer)
 
     init_weights = init_weights_3d
@@ -353,6 +368,7 @@ class ResNet_I3D(nn.Module):
     def forward(self, x: torch.Tensor):
         """x: (N, C, T, H, W), any memory format; returns channels_last_3d
         maps."""
+        refuse_quant_training(self.quant, self.training)
         x = self._stem(x.contiguous(memory_format=torch.channels_last_3d))
         remat = self.with_cp and self.training and torch.is_grad_enabled()
         outs = []

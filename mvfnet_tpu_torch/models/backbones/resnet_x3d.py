@@ -17,7 +17,12 @@ downsample.{0,1}}``, ``conv5``, ``fc1``. The reference's unused stem
 package's space-to-depth layout of thin stages at inference, the same
 parameters and values) is accepted and computed plainly; ``with_cp``,
 ``norm_eval``, ``frozen_stages`` and ``norm_frozen`` act as in
-``ResNet_I3D``; the int8 path raises.
+``ResNet_I3D``. ``quant='int8'|'int8_static'`` is the eval-only int8 path
+of the block convs whose type ``quant_ops`` lists (default the pointwise
+ones: conv1, conv3 and the shortcut; the 'mobile' conv2 is depthwise) in
+the stages ``quant_stages`` selects, except a stage the JAX package runs
+in its space-to-depth layout (``s2d_stages`` where that layout applies to
+the stage's input), which stays unquantized here too; training raises.
 """
 
 from __future__ import annotations
@@ -29,9 +34,10 @@ import torch.nn as nn
 
 from ...ops.mvf import hard_swish
 from ..builder import BACKBONES
-from ..common import SEModule, conv3d, make_norm, max_pool3d
+from ..common import (SEModule, check_quant_stages, conv3d, make_norm,
+                      max_pool3d, quant_modules, refuse_quant_training)
 from .resnet_i3d import (init_weights_3d, norm_eval_train, per_block,
-                         refuse_unported, run_stage)
+                         quant_for, run_stage)
 
 
 class X3DBottleneck(nn.Module):
@@ -45,7 +51,8 @@ class X3DBottleneck(nn.Module):
                  style: str = 'pytorch', if_inflate: bool = True,
                  inflate_style: str = 'mobile',
                  norm_cfg: Optional[Dict] = None, with_se: bool = True,
-                 with_hs: bool = True):
+                 with_hs: bool = True, quant: Optional[str] = None,
+                 quant_ops: Sequence[str] = ('pointwise',)):
         super().__init__()
         ss, ts, d = spatial_stride, temporal_stride, dilation
         self.with_hs = with_hs
@@ -62,17 +69,19 @@ class X3DBottleneck(nn.Module):
             c1_t = c2_t = 1
         depthwise = inflate_style == 'mobile' and if_inflate
         self.conv1 = conv3d(inplanes, planes, k1, stride=(c1_t, c1_s, c1_s),
-                            padding=p1)
+                            padding=p1, quant=quant_for(quant, quant_ops, k1))
         self.bn1 = make_norm(norm_cfg, planes)
         self.conv2 = conv3d(planes, planes, k2, stride=(c2_t, c2_s, c2_s),
                             padding=p2, dilation=(1, d, d),
                             groups=planes if depthwise else 1)
         self.bn2 = make_norm(norm_cfg, planes)
         self.se = SEModule(planes, 16, with_hs) if with_se else None
-        self.conv3 = conv3d(planes, out_channels, (1, 1, 1))
+        pointwise = quant_for(quant, quant_ops, (1, 1, 1))
+        self.conv3 = conv3d(planes, out_channels, (1, 1, 1), quant=pointwise)
         self.bn3 = make_norm(norm_cfg, out_channels)
         self.downsample = (nn.Sequential(
-            conv3d(inplanes, out_channels, (1, 1, 1), stride=(ts, ss, ss)),
+            conv3d(inplanes, out_channels, (1, 1, 1), stride=(ts, ss, ss),
+                   quant=pointwise),
             make_norm(norm_cfg, out_channels)) if with_downsample else None)
 
     def _act(self, x: torch.Tensor) -> torch.Tensor:
@@ -123,9 +132,23 @@ class ResNet_X3D(nn.Module):
         super().__init__()
         if depth not in self.arch_settings:
             raise KeyError(f'invalid depth {depth} for resnet_x3d')
-        refuse_unported(quant=quant)
+        check_quant_stages(quant, quant_stages, num_stages)
+        self.quant = quant
         stage_blocks = self.arch_settings[depth][:num_stages]
         self.num_stages = len(stage_blocks)
+        inflate = per_block(inflate_freq, 4)
+        # the JAX package's space-to-depth conditions but the input's size
+        # (``_s2d_stage``)
+        norm_type = (norm_cfg or {}).get('type', 'BN')
+        self._s2d = [
+            i in s2d_stages and norm_type in ('BN', 'BN3d', 'SyncBN')
+            and style == 'pytorch' and inflate_style == 'mobile'
+            and all(f == 1 for f in ((inflate[i],) if isinstance(
+                inflate[i], int) else inflate[i]))
+            and dilations[i] == 1 and temporal_strides[i] == 1
+            and spatial_strides[i] in (1, 2)
+            for i in range(self.num_stages)]
+        self._spatial_strides = tuple(spatial_strides)
         self.out_indices = tuple(out_indices)
         self.no_pool2 = no_pool2
         self.norm_eval = norm_eval
@@ -138,7 +161,6 @@ class ResNet_X3D(nn.Module):
         self.conv1_3x1 = nn.Sequential(
             conv3d(stem, stem, (3, 1, 1), groups=stem),
             make_norm(norm_cfg, stem))
-        inflate = per_block(inflate_freq, 4)
         for i, num_blocks in enumerate(stage_blocks):
             inplanes = int(24 * rw * ru ** (i - 1)) if i > 0 else stem
             planes = int(24 * rw * rb * 2 ** i)
@@ -156,9 +178,16 @@ class ResNet_X3D(nn.Module):
                     with_downsample=j == 0 and (ss != 1 or ts != 1
                                                 or inplanes != out_ch),
                     style=style, if_inflate=stage_inflate[j] == 1,
-                    inflate_style=inflate_style, norm_cfg=norm_cfg))
+                    inflate_style=inflate_style, norm_cfg=norm_cfg,
+                    quant=quant if quant and quant_stages[i] else None,
+                    quant_ops=tuple(quant_ops)))
                 inplanes = out_ch
             self.add_module(f'layer{i + 1}', nn.Sequential(*blocks))
+            if self._s2d[i]:
+                # the JAX package builds such a stage unquantized, without
+                # calibration state
+                for m in quant_modules(self.get_submodule(f'layer{i + 1}')):
+                    m.in_s2d_stage = True
         feat_dim = int(24 * rw * 2 ** (len(stage_blocks) - 1))
         self.conv5 = conv3d(feat_dim, int(feat_dim * rb), (1, 1, 1))
         self.fc1 = conv3d(int(feat_dim * rb), 2048, (1, 1, 1))
@@ -170,9 +199,29 @@ class ResNet_X3D(nn.Module):
         norm_eval_train(self, mode)
         return self
 
+    def _s2d_stage(self, i: int, x: torch.Tensor) -> bool:
+        """Whether the JAX package runs stage ``i`` on input ``x`` in its
+        space-to-depth layout (eval only, an input side divisible by twice
+        the stage's stride): such a stage is not quantized there. Its int8
+        convs keep no calibration state, so ``int8_static`` refuses an
+        input that would quantize them."""
+        if not self._s2d[i]:
+            return False
+        side = 2 * self._spatial_strides[i]
+        if x.shape[3] % side == 0 and x.shape[4] % side == 0:
+            return not self.training
+        if self.quant == 'int8_static':
+            raise ValueError(
+                f"quant='int8_static': stage {i} is in s2d_stages and keeps "
+                f'no activation scales, but a {x.shape[3]}x{x.shape[4]} '
+                f'input would quantize it (its space-to-depth form needs '
+                f'sides divisible by {side}); drop it from s2d_stages')
+        return False
+
     def forward(self, x: torch.Tensor):
         """x: (N, C, T, H, W), any memory format; returns the (N, 2048, 1,
         1, 1) features, after the maps of the other ``out_indices``."""
+        refuse_quant_training(self.quant, self.training)
         x = torch.relu(self.conv1(
             x.contiguous(memory_format=torch.channels_last_3d)))
         x = torch.relu(self.conv1_3x1(x))
@@ -180,7 +229,15 @@ class ResNet_X3D(nn.Module):
         outs = []
         for i in range(self.num_stages):
             stage = getattr(self, f'layer{i + 1}')
-            x = run_stage(stage, stage, x, remat=remat)
+            bypass = (quant_modules(stage) if self.quant
+                      and self._s2d_stage(i, x) else [])
+            for m in bypass:
+                m.bypass = True
+            try:
+                x = run_stage(stage, stage, x, remat=remat)
+            finally:
+                for m in bypass:
+                    m.bypass = False
             if i in self.out_indices and i != self.num_stages - 1:
                 outs.append(x)
             if not self.no_pool2 and i == 0:

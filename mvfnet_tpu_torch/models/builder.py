@@ -14,15 +14,7 @@ HEADS = Registry('head')
 SEGMENTAL_CONSENSUSES = Registry('segmental_consensus')
 
 
-# the JAX package's backbones the port does not have yet, by ROADMAP item
-_QUEUED_BACKBONES = {'ResNet_R3D': 'A13b', 'InceptionV1_I3D': 'A13b'}
-
-
 def build_backbone(cfg: Dict[str, Any]):
-    item = _QUEUED_BACKBONES.get(cfg.get('type'))
-    if item:
-        raise NotImplementedError(f'{cfg["type"]} is not ported yet '
-                                  f'(ROADMAP.md, {item})')
     return build_from_cfg(cfg, BACKBONES)
 
 

@@ -7,17 +7,25 @@ hand kernels both see NHWC bytes; the 3-D families' volumes are NCTHW in
 ``torch.channels_last_3d``, the NTHWC bytes of the JAX package's layout and
 of the data pipeline's ``FormatShape('NTHWC')``, so that entering the
 backbone is a view and cuDNN picks its channels-last 3-D convolutions.
+
+The eval-only int8 path (the JAX module's ``QuantConv2d``, ``QuantConv3d``,
+``IntCarry``, ``check_quant_calibrated``) keeps the parameters of the
+plain convs: ``conv2d``/``conv3d`` with ``quant`` build the quantized
+ones, whose convolutions run in ``ops.int8_conv``; ``quant_calibration``
+records their activation scales.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.profiler import record_function
 
+from ..ops import int8_conv as q8
 from ..ops.mvf import hard_sigmoid
 
 # torch BatchNorm defaults; flax's momentum 0.9 weighs the OLD statistics,
@@ -192,10 +200,32 @@ class Conv2d(nn.Conv2d):
         return self._conv_forward(x, self.weight.to(x.dtype), bias)
 
 
+QUANT_MODES = ('int8', 'int8_static')
+
+
+def check_quant_mode(quant: Optional[str]) -> None:
+    if quant is not None and quant not in QUANT_MODES:
+        raise ValueError(f'unknown quant mode {quant!r}')
+
+
 def conv2d(in_channels: int, out_channels: int, kernel_size: int, *,
            stride: int = 1, padding: int = 0, dilation: int = 1,
-           bias: bool = False) -> Conv2d:
-    """torch-semantics Conv2d, no bias by default (the ResNet convention)."""
+           bias: bool = False, quant: Optional[str] = None,
+           carry_out: bool = False, split: int = 0) -> Conv2d:
+    """torch-semantics Conv2d, no bias by default (the ResNet convention).
+    ``quant='int8'|'int8_static'`` gives a :class:`QuantConv2d` (the same
+    state-dict entries); ``carry_out`` (quant only) makes it return the
+    :class:`IntCarry` accumulator, ``split`` quantizes its first ``split``
+    input channels and the rest with separate scales (the MVF block's
+    conv1)."""
+    if quant in QUANT_MODES:
+        return QuantConv2d(in_channels, out_channels, kernel_size,
+                           stride=stride, padding=padding, dilation=dilation,
+                           bias=bias, quant=quant, carry_out=carry_out,
+                           split=split)
+    if carry_out:
+        raise ValueError('carry_out requires a quant mode')
+    check_quant_mode(quant)
     return Conv2d(in_channels, out_channels, kernel_size, stride=stride,
                   padding=padding, dilation=dilation, bias=bias)
 
@@ -212,16 +242,282 @@ def conv3d(in_channels: int, out_channels: int, kernel: Tuple[int, ...], *,
            stride: Tuple[int, ...] = (1, 1, 1),
            padding: Optional[Tuple[int, ...]] = None,
            dilation: Tuple[int, ...] = (1, 1, 1), groups: int = 1,
-           bias: bool = False) -> Conv3d:
+           bias: bool = False, quant: Optional[str] = None) -> Conv3d:
     """torch-semantics Conv3d on NCTHW, no bias by default; ``padding``
     defaults to ``(k - 1) // 2`` per axis (the JAX package's ``conv3d``,
-    ``backbones/resnet_i3d.py:27-54``)."""
+    ``backbones/resnet_i3d.py:27-54``); ``quant`` gives a
+    :class:`QuantConv3d`, whose callers choose it by conv type
+    (``quant_conv3d_type``)."""
     kernel = tuple(kernel)
     if padding is None:
         padding = tuple((k - 1) // 2 for k in kernel)
-    return Conv3d(in_channels, out_channels, kernel, stride=tuple(stride),
-                  padding=tuple(padding), dilation=tuple(dilation),
-                  groups=groups, bias=bias)
+    check_quant_mode(quant)
+    cls = QuantConv3d if quant else Conv3d
+    extra = dict(quant=quant) if quant else {}
+    return cls(in_channels, out_channels, kernel, stride=tuple(stride),
+               padding=tuple(padding), dilation=tuple(dilation),
+               groups=groups, bias=bias, **extra)
+
+
+# ------------------------------------------------------------ int8 eval path
+
+class IntCarry(NamedTuple):
+    """An int32 conv accumulator carried to the next quantized conv (the
+    JAX package's ``IntCarry``): ``acc`` int32 NHWC, ``scale`` its
+    per-output-channel dequantization factor ``sx * sw``, and the compute
+    dtype the chain returns to."""
+    acc: torch.Tensor
+    scale: torch.Tensor
+    dtype: torch.dtype
+
+
+def bn_affine(bn: nn.BatchNorm2d):
+    """Eval-mode BatchNorm as a per-channel affine ``y = a * x + b``."""
+    a = bn.weight / torch.sqrt(bn.running_var + bn.eps)
+    return a, bn.bias - a * bn.running_mean
+
+
+class _QuantStats:
+    """The calibration state of an int8 conv, one buffer per statistic:
+    the activation abs-max (``act_amax``; the split conv keeps
+    ``act_amax_y`` and ``act_amax_x``) and its ``*_calibrated`` marker, the
+    JAX package's ``quant_stats`` collection. The buffers are not
+    persistent: the state dict holds the unquantized model's entries only.
+
+    ``static`` (``int8_static``) quantizes activations with the recorded
+    abs-max; ``int8`` with each call's own. Inside ``quant_calibration``
+    (``calibrating``) every call quantizes with its own abs-max, raises the
+    recorded one to it and marks it calibrated, in both modes."""
+
+    def _init_quant(self, quant: str, stats: Sequence[str]) -> None:
+        check_quant_mode(quant)
+        self.quant = quant
+        self.static = quant == 'int8_static'
+        self.calibrating = False
+        self.bypass = False     # compute unquantized (X3D's s2d stages)
+        self.in_s2d_stage = False   # such a stage: no calibration state
+        for name in stats:
+            self.register_buffer(name, torch.zeros(()), persistent=False)
+            self.register_buffer(name + '_calibrated', torch.zeros(()),
+                                 persistent=False)
+
+    def _act_scale(self, xf: torch.Tensor, stat: str) -> torch.Tensor:
+        """The per-tensor scale of float32 ``xf``, recording its abs-max
+        while calibrating."""
+        if self.calibrating:
+            amax = xf.abs().amax()
+            buf = getattr(self, stat)
+            with torch.no_grad():
+                buf.copy_(torch.maximum(buf, amax.to(buf.dtype)))
+                getattr(self, stat + '_calibrated').fill_(1)
+            return q8.activation_scale(amax)
+        if self.static:
+            return q8.activation_scale(getattr(self, stat).float())
+        return q8.activation_scale(xf.abs().amax())
+
+    def _quant_input(self, x: torch.Tensor, stat: str):
+        """``(sx, int8 x)`` with channels last, x NC... of any rank."""
+        with record_function('int8_quantize'):
+            xf = x.float()
+            sx = self._act_scale(xf, stat)
+            xq = q8.quantize_activation(xf, sx)
+        return sx, xq.permute((0,) + tuple(range(2, x.ndim)) + (1,))
+
+    def _quant_weight(self, w: torch.Tensor):
+        with record_function('int8_weights'):
+            return q8.quantize_weight(w)
+
+
+def _pairs(padding) -> Tuple[Tuple[int, int], ...]:
+    return tuple((p, p) for p in padding)
+
+
+class QuantConv2d(Conv2d, _QuantStats):
+    """Int8 eval conv with the parameters of ``Conv2d`` (the JAX package's
+    ``QuantConv2d``): per-output-channel symmetric weight scales computed
+    from the fp32 weight at each call, a per-tensor activation scale
+    (``_QuantStats``), exact int32 accumulation in ``ops.int8_conv`` and the
+    result rescaled by ``sx * sw`` (+ bias) to the input's dtype.
+
+    ``carry_out`` (per call, or the default given here) returns the
+    :class:`IntCarry` instead; an ``IntCarry`` input, with the previous
+    BN's affine as ``prev_affine``, folds that affine, the ReLU and this
+    conv's input quantization into one int32 -> int8 pass with the recorded
+    abs-max (``int8_static`` only). ``split`` > 0 quantizes the first
+    ``split`` input channels and the rest with their own activation scales
+    and one weight scale over the whole kernel, and adds the two rescaled
+    products (the MVF block's conv1, JAX ``_SplitPointwiseConv``).
+    ``stem`` quantizes the weight after its cast to the input's dtype, as
+    the JAX package's quantized space-to-depth stem does, which this conv
+    computes directly (the two forms are the same sum term for term).
+    Eval only: the owning backbone refuses training."""
+
+    def __init__(self, *args, quant: str = 'int8', carry_out: bool = False,
+                 split: int = 0, stem: bool = False, **kwargs):
+        super().__init__(*args, **kwargs)
+        if self.groups != 1:
+            raise ValueError('QuantConv2d has no groups')
+        self._init_quant(quant, ('act_amax_y', 'act_amax_x') if split
+                         else ('act_amax',))
+        self.carry_out = carry_out
+        self.split = split
+        self.stem = stem
+
+    def _geometry(self):
+        return ((1,) + tuple(self.stride), ((0, 0),) + _pairs(self.padding),
+                (1,) + tuple(self.dilation))
+
+    def forward(self, x, prev_affine=None, carry_out: Optional[bool] = None):
+        carry_out = self.carry_out if carry_out is None else carry_out
+        w = self.weight
+        if self.stem:
+            w = w.to(x.dtype).float()
+        wq, sw = self._quant_weight(w)
+        w5 = wq.permute(2, 3, 1, 0)[None]               # (1, kh, kw, I, O)
+        stride, padding, dilation = self._geometry()
+        if self.split:
+            if carry_out or isinstance(x, IntCarry):
+                raise ValueError('the split conv takes no integer carry')
+            return self._forward_split(x, wq, sw)
+        if isinstance(x, IntCarry):
+            if not self.static or prev_affine is None:
+                raise ValueError('IntCarry input needs static=True and the '
+                                 'previous BN affine')
+            with record_function('int8_requantize'):
+                sx = q8.activation_scale(self.act_amax.float())
+                xq = q8.requantize_carry(x.acc, x.scale, *prev_affine, sx)
+            dtype = x.dtype
+        else:
+            sx, xq = self._quant_input(x, 'act_amax')
+            dtype = x.dtype
+        scale = sx * sw
+        if carry_out:
+            if self.bias is not None:
+                raise ValueError('carry_out with bias is unsupported')
+            acc = q8.int8_conv(xq[:, None], w5, stride, padding, dilation)
+            return IntCarry(acc[:, 0], scale, dtype)
+        out = q8.int8_conv(xq[:, None], w5, stride, padding, dilation,
+                           scale=scale, bias=self.bias, out_dtype=dtype)
+        return to_nchw(out[:, 0])
+
+    def _forward_split(self, x, wq, sw):
+        stride, padding, dilation = self._geometry()
+        out = None
+        for v, part, stat in ((x[:, :self.split], wq[:, :self.split],
+                               'act_amax_y'),
+                              (x[:, self.split:], wq[:, self.split:],
+                               'act_amax_x')):
+            sx, vq = self._quant_input(v, stat)
+            scale = sx * sw
+            y = q8.int8_conv(vq[:, None], part.permute(2, 3, 1, 0)[None],
+                             stride, padding, dilation, scale=scale,
+                             out_dtype=torch.promote_types(torch.float32,
+                                                           scale.dtype))
+            if out is None:
+                out = y
+            else:
+                with record_function('int8_split_sum'):
+                    out = (out + y).to(x.dtype)
+        return to_nchw(out[:, 0])
+
+
+class QuantConv3d(Conv3d, _QuantStats):
+    """Int8 eval Conv3d with the parameters of ``Conv3d`` (the JAX
+    package's ``QuantConv3d``): the scheme of :class:`QuantConv2d` on NCTHW
+    volumes, whatever the kernel; the backbones choose which conv types
+    take it (``quant_ops``)."""
+
+    def __init__(self, *args, quant: str = 'int8', **kwargs):
+        super().__init__(*args, **kwargs)
+        if self.groups != 1:
+            raise ValueError('QuantConv3d has no groups')
+        self._init_quant(quant, ('act_amax',))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.bypass:
+            return super().forward(x)
+        wq, sw = self._quant_weight(self.weight)
+        sx, xq = self._quant_input(x, 'act_amax')
+        out = q8.int8_conv(xq, wq.permute(2, 3, 4, 1, 0), tuple(self.stride),
+                           _pairs(self.padding), tuple(self.dilation),
+                           scale=sx * sw, bias=self.bias, out_dtype=x.dtype)
+        return out.permute(0, 4, 1, 2, 3)
+
+
+def quant_conv3d_type(kernel: Tuple[int, int, int]) -> str:
+    """A conv3d kernel's type for the per-type quant masks: 'temporal'
+    (kt > 1), 'spatial' (kt == 1 with a spatial extent > 1) or
+    'pointwise' (1x1x1)."""
+    kt, kh, kw = kernel
+    if kt > 1:
+        return 'temporal'
+    if max(kh, kw) > 1:
+        return 'spatial'
+    return 'pointwise'
+
+
+def quant_modules(model: nn.Module):
+    return [m for m in model.modules() if isinstance(m, _QuantStats)]
+
+
+def quant_buffers(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """Every int8 conv's calibration buffers by state-dict-style name
+    (``backbone.layer1.0.conv1.act_amax``), the JAX package's
+    ``quant_stats`` collection; X3D's space-to-depth stages, which JAX
+    builds unquantized, have none."""
+    mods = {id(m) for m in quant_modules(model) if not m.in_s2d_stage}
+    return {f'{name}.{b}' if name else b: t
+            for name, m in model.named_modules() if id(m) in mods
+            for b, t in m.named_buffers(recurse=False)
+            if b.startswith('act_amax')}
+
+
+@contextlib.contextmanager
+def quant_calibration(model: nn.Module):
+    """Inside, every int8 conv of ``model`` calibrates: the counterpart of
+    applying the JAX model with ``mutable=['quant_stats']``. The recorded
+    abs-max only grows, from what the model holds (zeros when built, as
+    the JAX init pass on zeros records)."""
+    mods = quant_modules(model)
+    for m in mods:
+        m.calibrating = True
+    try:
+        yield model
+    finally:
+        for m in mods:
+            m.calibrating = False
+
+
+def check_quant_calibrated(model: nn.Module) -> None:
+    """Refuse an ``int8_static`` eval on uncalibrated activation scales
+    (every ``*_calibrated`` marker must be set); nothing for a model that
+    is not ``int8_static``."""
+    if getattr(getattr(model, 'backbone', None), 'quant',
+               None) != 'int8_static':
+        return
+    markers = [v for k, v in quant_buffers(model).items()
+               if k.endswith('calibrated')]
+    if not markers or not all(float(m) > 0 for m in markers):
+        raise ValueError(
+            "quant='int8_static' needs calibrated activation scales: run "
+            "apply(..., mutable=['quant_stats']) on representative batches "
+            'first (test_recognizer.py does this automatically via '
+            '--calib_videos) and pass the updated quant_stats collection')
+
+
+def refuse_quant_training(quant: Optional[str], training: bool) -> None:
+    if quant and training:
+        raise ValueError('quant={!r} is an eval-only path; gradients '
+                         'through int8 rounding are meaningless'
+                         .format(quant))
+
+
+def check_quant_stages(quant: Optional[str], quant_stages: Sequence[int],
+                       num_stages: int) -> None:
+    if quant and len(quant_stages) < num_stages:
+        raise ValueError(
+            f'quant_stages needs one entry per stage: got '
+            f'{len(quant_stages)} for num_stages={num_stages}')
 
 
 def max_pool3d(x: torch.Tensor, kernel, stride, padding) -> torch.Tensor:

@@ -27,7 +27,7 @@ import torch
 import torch.nn as nn
 
 from ..builder import RECOGNIZERS, build_backbone, build_head
-from ..common import to_nhwc
+from ..common import quant_calibration, to_nhwc
 
 
 def _prepare_backbone_cfg(backbone: Dict, module_cfg: Optional[Dict],
@@ -115,6 +115,11 @@ class Recognizer2D(nn.Module):
                         m.running_var.copy_(torch.rand(
                             m.running_var.shape, generator=generator)
                             * 0.4 + 0.8)
+
+    def calibrate(self):
+        """A context inside which the int8 convs record their activation
+        abs-max (``common.quant_calibration``)."""
+        return quant_calibration(self)
 
     def extract_feat(self, imgs: torch.Tensor) -> torch.Tensor:
         """(M, H, W, C) channels-last -> backbone maps, NCHW channels_last."""

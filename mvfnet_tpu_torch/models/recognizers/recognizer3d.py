@@ -62,6 +62,7 @@ class Recognizer3D(nn.Module):
 
     init_weights = Recognizer2D.init_weights
     average_clip = Recognizer2D.average_clip
+    calibrate = Recognizer2D.calibrate
 
     def extract_feat(self, imgs: torch.Tensor):
         """(N, T, H, W, C) channels-last -> the backbone's NCTHW maps."""

@@ -24,16 +24,11 @@ from __future__ import annotations
 
 import collections
 import ctypes
-from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from . import _cuda
-
-# Comparison override for tests and chip_smoke.py only: None = by device,
-# 'plain' = the plain version even on the card.
-FORCE: Optional[str] = None
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -155,8 +150,7 @@ bottleneck_eval_cuda.launches_by_shape = collections.Counter()
 
 def bottleneck_eval(x, w1, b1, w2, b2, w3, b3):
     """Dispatch: the plain version for a CPU or meta tensor, the kernel for
-    a CUDA tensor (``FORCE='plain'`` runs the plain version on the card,
-    for comparison only)."""
-    if x.device.type in ('cpu', 'meta') or FORCE == 'plain':
+    a CUDA tensor."""
+    if x.device.type in ('cpu', 'meta'):
         return bottleneck_eval_plain(x, w1, b1, w2, b2, w3, b3)
     return bottleneck_eval_cuda(x, w1, b1, w2, b2, w3, b3)

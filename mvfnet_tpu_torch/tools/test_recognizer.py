@@ -17,6 +17,13 @@ config's ``Normalize`` decides whether the host or the device normalizes.
 Under ``--launcher env`` (torchrun) or ``slurm`` (srun) every rank scores
 its shard of the videos and rank 0 alone writes the pickle and prints.
 It runs on CUDA unless ``--device cpu`` is given, and raises without CUDA.
+
+A config whose backbone sets ``quant='int8_static'`` is calibrated first
+on ``--calib_videos`` videos of the test set (8 by default), as the root
+CLI does: the activation abs-max starts from what the checkpoint holds (a
+``.msgpack`` with a ``quant_stats`` collection) or from zeros, the JAX
+init pass on zeros, and grows over those videos. ``quant='int8'``
+quantizes each call with its own scales and needs no calibration.
 """
 
 from __future__ import annotations
@@ -40,8 +47,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     parser.add_argument('--view_chunk', type=int, default=None,
                         help="stored in the model's test_cfg")
     parser.add_argument('--calib_videos', type=int, default=8,
-                        help='int8 calibration videos (int8 is not ported '
-                             'yet)')
+                        help='videos used to calibrate activation scales '
+                             "when backbone.quant='int8_static'")
     parser.add_argument('--launcher', default='none',
                         choices=['none', 'env', 'slurm'])
     parser.add_argument('--device', default='cuda',
@@ -51,15 +58,16 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 
 def build_model(cfg, fcn_testing: bool, average_clips: Optional[str],
-                view_chunk: Optional[int] = None, extract_feat: bool = False):
+                view_chunk: Optional[int] = None, extract_feat: bool = False,
+                backbone: Optional[Dict[str, Any]] = None):
     """The config's recognizer for dense testing, in its compute dtype; with
-    ``extract_feat`` its head returns pooled features."""
+    ``extract_feat`` its head returns pooled features. ``backbone`` updates
+    the config's backbone options."""
     from ..models import build_recognizer
-    if (cfg.model.get('backbone') or {}).get('quant'):
-        raise NotImplementedError('quantized backbones and int8 calibration '
-                                  'are not ported yet (ROADMAP.md, A14)')
     model_cfg = dict(cfg.model, fcn_testing=fcn_testing,
                      dtype=cfg.get('compute_dtype'))
+    if backbone:
+        model_cfg['backbone'] = dict(model_cfg['backbone'], **backbone)
     if 'cls_head' in model_cfg:
         model_cfg['cls_head'] = dict(model_cfg['cls_head'],
                                      fcn_testing=fcn_testing,
@@ -85,18 +93,30 @@ def load_checkpoint(model, checkpoint: str, logger=None) -> Dict[str, Any]:
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
-    """Run the dense test; returns the scores and the three accuracies
-    (on every rank)."""
+    """Run the dense test; returns the scores, the three accuracies and the
+    int8 convs' calibration buffers (empty without quant), on every
+    rank."""
     args = parse_args(argv)
     from ..parallel import process_group
     with process_group(args.launcher, args.device) as device:
         return _test(args, device)
 
 
+def calibrate(model, dataset, videos: int, norm_cfg, device,
+              logger) -> None:
+    """Calibrate an ``int8_static`` model on the dataset's first ``videos``
+    videos (nothing for other models)."""
+    from ..engine.eval import calibrate_quant
+    n = calibrate_quant(model, dataset, videos, norm_cfg, device)
+    if n:
+        logger.info('calibrated int8 activation scales on %d videos', n)
+
+
 def _test(args, device) -> Dict[str, Any]:
     from ..config import Config
     from ..data import build_dataset, dataset_decoder, device_norm_cfg
     from ..engine.eval import evaluate_dataset
+    from ..models.common import quant_buffers
     from ..models.builder import model_name
     from ..parallel import is_main_process
     from ..utils.logging import get_root_logger
@@ -113,11 +133,12 @@ def _test(args, device) -> Dict[str, Any]:
     dataset = build_dataset(dict(cfg.data['test']))
     logger.info('test dataset: %d videos, decoder %s', len(dataset),
                 dataset_decoder(dataset))
+    norm_cfg = device_norm_cfg(cfg.data['test'].get('pipeline'))
+    calibrate(model, dataset, args.calib_videos, norm_cfg, device, logger)
     scores = evaluate_dataset(
         model, dataset, videos_per_gpu=args.videos_per_gpu,
         workers_per_gpu=cfg.data.get('workers_per_gpu', 4), progress=True,
-        norm_cfg=device_norm_cfg(cfg.data['test'].get('pipeline')),
-        device=device)
+        norm_cfg=norm_cfg, device=device)
 
     labels = [info['label'] for info in dataset.video_infos]
     top1, top5 = top_k_accuracy(scores, labels, k=(1, 5))
@@ -130,7 +151,9 @@ def _test(args, device) -> Dict[str, Any]:
         print(f'Top-1 Accuracy = {top1 * 100:.02f}')
         print(f'Top-5 Accuracy = {top5 * 100:.02f}')
         print(f'Mean Class Accuracy = {mca * 100:.02f}')
-    return dict(scores=scores, top1=top1, top5=top5, mean_class=mca)
+    return dict(scores=scores, top1=top1, top5=top5, mean_class=mca,
+                quant_stats={k: v.detach().cpu()
+                             for k, v in quant_buffers(model).items()})
 
 
 if __name__ == '__main__':

@@ -4,7 +4,9 @@
     python -m mvfnet_tpu_torch.tools.validate_k400 --checkpoint CKPT \\
         --ann VAL_LIST --data-root ROOT [--config CONFIG] \\
         [--expected-top1 P] [--budget 0.2] [--max-videos N] \\
-        [--videos-per-gpu N] [--out verdict.json] [--device cuda|cpu]
+        [--videos-per-gpu N] [--out verdict.json] [--device cuda|cpu] \
+        [--quant int8|int8_static [--quant-stages S1 S2 S3 S4] \
+         [--calib-videos N]]
 
 Runs the config's test split, re-pointed at ``--ann`` and
 ``--data-root``, through the dense-test protocol (``fcn_testing``,
@@ -13,8 +15,10 @@ the test CLI does (in the config's ``compute_dtype``), and prints one JSON
 line with the JAX tool's keys: Top-1 / Top-5 / mean-class accuracy in
 percent and a pass/fail verdict against the published Top-1
 (``EXPECTED_TOP1``, by the config's name) less ``--budget``. Exits 1 when
-the verdict fails. ``--quant`` (the int8 eval path) raises: it is not
-ported yet. It runs on CUDA unless ``--device cpu`` is given.
+the verdict fails. ``--quant`` validates the int8 eval path instead, on
+the stages ``--quant-stages`` selects; ``int8_static`` first calibrates on
+``--calib-videos`` videos (8 by default), as the test CLI does. It runs on
+CUDA unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -50,7 +54,11 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument('--budget', type=float, default=0.2,
                    help='allowed Top-1 shortfall in percent')
     p.add_argument('--quant', default=None, choices=['int8', 'int8_static'],
-                   help='the int8 eval path (not ported yet)')
+                   help='validate the int8 eval path instead of the '
+                        "config's compute dtype")
+    p.add_argument('--quant-stages', type=int, nargs=4, default=None,
+                   metavar=('S1', 'S2', 'S3', 'S4'))
+    p.add_argument('--calib-videos', type=int, default=8)
     p.add_argument('--max-videos', type=int, default=None,
                    help='evaluate only the first N videos (smoke runs)')
     p.add_argument('--videos-per-gpu', type=int, default=1)
@@ -62,19 +70,21 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 def validate(args: argparse.Namespace) -> Dict[str, Any]:
     """The verdict dictionary (the JAX tool's keys)."""
-    if args.quant:
-        raise NotImplementedError('validate_k400 --quant: the int8 eval path '
-                                  'is not ported yet (ROADMAP.md, A14)')
     from ..config import Config
     from ..data import build_dataset, device_norm_cfg
     from ..engine.eval import evaluate_dataset
     from ..utils.logging import get_root_logger
     from ..utils.metrics import mean_class_accuracy, top_k_accuracy
-    from .test_recognizer import build_model, load_checkpoint
+    from .test_recognizer import build_model, calibrate, load_checkpoint
 
     cfg = Config.fromfile(args.config)
     logger = get_root_logger(cfg.get('log_level', 'INFO'))
-    model = build_model(cfg, True, 'prob')
+    quant = {}
+    if args.quant:
+        quant = dict(quant=args.quant)
+        if args.quant_stages:
+            quant['quant_stages'] = tuple(args.quant_stages)
+    model = build_model(cfg, True, 'prob', backbone=quant)
     load_checkpoint(model, args.checkpoint, logger)
     data_cfg = dict(cfg.data['test'], ann_file=args.ann,
                     data_root=args.data_root)
@@ -82,11 +92,13 @@ def validate(args: argparse.Namespace) -> Dict[str, Any]:
     if args.max_videos:
         dataset.video_infos = dataset.video_infos[:args.max_videos]
     logger.info('validation dataset: %d videos', len(dataset))
+    norm_cfg = device_norm_cfg(data_cfg.get('pipeline'))
+    calibrate(model, dataset, args.calib_videos, norm_cfg, args.device,
+              logger)
     scores = evaluate_dataset(
         model, dataset, videos_per_gpu=args.videos_per_gpu,
         workers_per_gpu=cfg.data.get('workers_per_gpu', 4), progress=True,
-        norm_cfg=device_norm_cfg(data_cfg.get('pipeline')),
-        device=args.device)
+        norm_cfg=norm_cfg, device=args.device)
     labels = [info['label'] for info in dataset.video_infos]
     top1, top5 = top_k_accuracy(scores, labels, k=(1, 5))
     mca = mean_class_accuracy(scores, labels)

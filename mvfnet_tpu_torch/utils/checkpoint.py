@@ -16,8 +16,13 @@
   ``features.K.conv.I``, a 2-D non-local block ``nonlocal{i}_{j}`` ->
   ``layer{i}.{j}.nl`` beside the wrapped ``layer{i}.{j}.block``, I3D's
   ``LocalAttention_0`` -> ``nonlocal_block``, CoST_0 -> ``conv2``, the TRN
-  MLPs -> ``segmental_consensus.{classifier,fc_fusion_scales.i}``).
-  ``jax_entries``
+  MLPs -> ``segmental_consensus.{classifier,fc_fusion_scales.i}``, the
+  R(2+1)D stem's ``conv1_s/bn1_s/conv1_t/bn1_t`` and letter-named blocks,
+  InceptionV1-I3D's flat stem convs and branches). A ``quant_stats``
+  collection (the int8 convs' calibration state) becomes entries named
+  after the conv's buffers (``backbone.layer1.0.conv1.act_amax``), which
+  the model holds outside its ``state_dict`` (``models.common.
+  quant_buffers``). ``jax_entries``
   gives the same mapping leaf by leaf, with each leaf's JAX path;
   ``jax_variables_from_state_dict`` is its inverse.
 - ``load_torch_state_dict``: a reference ``.pth`` -> ``{name: tensor}``.
@@ -45,6 +50,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import string
 import tempfile
 from typing import Any, Dict, Iterator, List, Optional, Tuple
 
@@ -54,6 +60,7 @@ import torch
 from .logging import get_root_logger
 from .msgpack_codec import msgpack_restore, write_msgpack
 
+_COLLECTIONS = ('params', 'batch_stats', 'quant_stats')
 _BN_LEAF = {'scale': 'weight', 'bias': 'bias', 'mean': 'running_mean',
             'var': 'running_var'}
 _MVF_LEAF = {'bn_scale': 'bn.weight', 'bn_bias': 'bn.bias',
@@ -88,7 +95,7 @@ def _module_name(name: str) -> str:
     if m:       # TRNmultiscale: Sequential(ReLU, Linear, ReLU, Linear)
         return f'fc_fusion_scales.{m.group(1)}.{2 * int(m.group(2)) - 1}'
     return {'downsample_conv': 'downsample.0',
-            'downsample_bn': 'downsample.1',
+            'downsample_bn': 'downsample.1', 'conv1_bn': 'conv1_7x7_s2_bn',
             'conv1_3x1': 'conv1_3x1.0', 'conv1_3x1_bn': 'conv1_3x1.1',
             'backbone_mod': 'backbone', 'head_mod': 'cls_head',
             'fc': 'new_fc', 'consensus': 'segmental_consensus',
@@ -101,6 +108,15 @@ def _module_name(name: str) -> str:
 _BNI_BRANCH = {'b1x1': '1x1', 'b3_reduce': '3x3_reduce', 'b3': '3x3',
                'bd_reduce': 'double_3x3_reduce', 'bd1': 'double_3x3_1',
                'bd2': 'double_3x3_2', 'bpool_proj': 'pool_proj'}
+# InceptionV1-I3D's
+_I3D_BRANCH = {'b1x1': '1x1', 'b1_reduce': 'branch1_3x3_reduce',
+               'b1_3x3': 'branch1_3x3', 'b2_reduce': 'branch2_3x3_reduce',
+               'b2_3x3': 'branch2_3x3', 'pool_proj': 'pool_proj'}
+# R(2+1)D's BatchNorm wrappers: the JAX module nests each BatchNorm one
+# level deeper, under a child 'bn'
+_R3D_BN = ('bn0', 'bn1', 'bn2', 'bn3', 'bn1_s', 'bn1_t', 'bn_s', 'bn_T')
+# and the convs only its blocks hold (beside 'conv0' and the stem 'conv1_s')
+_R3D_CONV = ('conv', 'conv_s', 'conv_t', 'conv_T', 'conv_C')
 _BNI_STEM = ('conv1_7x7_s2', 'conv2_3x3_reduce', 'conv2_3x3')
 # MobileNetV2's block modules -> d-li14's ``conv`` Sequential indices:
 # block 0 has no expansion, the others do
@@ -113,9 +129,10 @@ _MBV2_INDEX = (
 class _TreeContext:
     """What naming a JAX leaf in the port needs from the rest of its tree:
     the modules holding an MVF (whose conv becomes ``net``), the 2-D blocks
-    that a non-local block follows (which become ``block``), and the head
+    that a non-local block follows (which become ``block``), the head
     FC's name (``fc_cls`` when the backbone convolves in 3-D outside its
-    non-local blocks, else ``new_fc``)."""
+    non-local blocks, else ``new_fc``), and whether the tree is an
+    R(2+1)D's (BatchNorms nested in a wrapper, letter-named blocks)."""
 
     def __init__(self, leaves):
         """``leaves``: (JAX path, number of dimensions) of every leaf."""
@@ -128,6 +145,10 @@ class _TreeContext:
             p[-1] == 'kernel' and nd == 5 and not any(
                 m.startswith(('nonlocal', 'LocalAttention')) for m in p)
             for p, nd in leaves) else 'new_fc'
+        self.r3d = any(
+            (a in _R3D_BN and b == 'bn') or a in ('conv0', 'conv1_s')
+            or (a in ('conv1', 'conv2') and b in _R3D_CONV)
+            for p, _ in leaves for a, b in zip(p, p[1:]))
 
 
 def _port_prefix(mods, ctx: '_TreeContext') -> str:
@@ -141,10 +162,21 @@ def _port_prefix(mods, ctx: '_TreeContext') -> str:
             out.append(m if nxt == 'conv' else m + '_bn')
             i += 2
             continue
-        if m.startswith('inception_') and nxt in _BNI_BRANCH:
-            out.append(f'{m}_{_BNI_BRANCH[nxt]}'
+        if m.startswith('inception_') and (nxt in _BNI_BRANCH
+                                           or nxt in _I3D_BRANCH):
+            suffix = _BNI_BRANCH.get(nxt) or _I3D_BRANCH[nxt]
+            out.append(f'{m}_{suffix}'
                        + ('_bn' if mods[i + 2] == 'bn' else ''))
             i += 3
+            continue
+        if ctx.r3d and m == 'bn' and i and mods[i - 1] in _R3D_BN:
+            i += 1                      # the wrapper's BatchNorm
+            continue
+        blk = re.fullmatch(r'layer(\d+)_(\d+)', m)
+        if ctx.r3d and blk:             # blocks a, b, ... of a ModuleList
+            out.append(f'layer{blk.group(1)}.'
+                       f'{string.ascii_lowercase[int(blk.group(2))]}')
+            i += 1
             continue
         blk = re.fullmatch(r'block(\d+)', m)
         if blk and nxt is not None:
@@ -175,9 +207,20 @@ def _port_prefix(mods, ctx: '_TreeContext') -> str:
     return '.'.join(out)
 
 
+def is_quant_stat(name: str) -> bool:
+    """Whether a port entry or JAX leaf name is an int8 conv's calibration
+    statistic (``act_amax``, ``act_amax_y``, ``..._calibrated``)."""
+    return name.rsplit('.', 1)[-1].rsplit('/', 1)[-1].startswith('act_amax')
+
+
 def _torch_entry(path: Tuple[str, ...], value: np.ndarray,
                  ctx: _TreeContext) -> Tuple[str, np.ndarray]:
     *mods, leaf = path
+    if is_quant_stat(leaf):
+        prefix = _port_prefix(mods, ctx)
+        if mods[-1] == 'conv1' and tuple(mods[:-1]) in ctx.mvf:
+            prefix += '.net'          # MVF wraps the block's conv1
+        return f'{prefix}.{leaf}', value
     if mods and mods[-1] == 'MVF_0':
         prefix = _port_prefix(mods, ctx)
         if leaf in _TAP_SHAPE:
@@ -211,9 +254,10 @@ def _torch_entry(path: Tuple[str, ...], value: np.ndarray,
 def jax_entries(variables: Dict[str, Any]
                 ) -> Iterator[Tuple[str, str, str, np.ndarray]]:
     """``(collection, JAX path, port name, value in the port's layout)`` for
-    each leaf of the JAX package's recognizer variables; the path is
-    '/'-joined inside its collection, as optax's labels see it."""
-    leaves = [(coll, path, v) for coll in ('params', 'batch_stats')
+    each leaf of the JAX package's recognizer variables (``params``,
+    ``batch_stats`` and ``quant_stats``); the path is '/'-joined inside its
+    collection, as optax's labels see it."""
+    leaves = [(coll, path, v) for coll in _COLLECTIONS
               for path, v in _leaves(variables.get(coll, {}))]
     ctx = _TreeContext((path, np.ndim(v)) for _, path, v in leaves)
     for coll, path, value in leaves:
@@ -226,7 +270,8 @@ def state_dict_from_jax(variables: Dict[str, Any]
     """The port's ``state_dict`` for the JAX package's recognizer variables.
 
     Values keep their dtype; every BatchNorm also gets a zero
-    ``num_batches_tracked``, so the result loads with ``strict=True``.
+    ``num_batches_tracked``, so the result loads with ``strict=True``
+    (``quant_stats`` entries aside: ``is_quant_stat`` picks them out).
     """
     out: Dict[str, torch.Tensor] = {}
     for _, _, name, v in jax_entries(variables):
@@ -349,20 +394,39 @@ def import_torch_state_dict(model: torch.nn.Module,
     model entry no key reached keeps its value and is reported missing.
     ``inflate_in_channels`` (10 for Flow, 15 for RGBDiff) turns an RGB stem
     into the mean over its input channels, broadcast (before a temporal
-    inflation). The vocabularies the port has no model for (R(2+1)D,
-    InceptionV1-I3D) end up unexpected, and so do the keys the JAX importer
-    also reports: X3D's unused stem ``bn1``, biases of convs without one,
-    the fast pathway's laterals.
+    inflation). Keys the JAX importer also reports end up unexpected:
+    X3D's unused stem ``bn1``, biases of convs without one, the fast
+    pathway's laterals. Calibration entries (``is_quant_stat``, from a
+    ``.msgpack``'s ``quant_stats``) load into the int8 convs' buffers; a
+    model without int8 convs skips them, and a model with some that the
+    entries do not cover reports those buffers missing.
     """
+    from ..models.common import quant_buffers
     logger = logger or get_root_logger()
     targets = model.state_dict()
+    stats = quant_buffers(model)
     applied: List[str] = []
     unexpected: List[str] = []
     mismatched: List[str] = []
     updates: Dict[str, torch.Tensor] = {}
+    carried_stats = False
     for key, value in state_dict.items():
         key = _strip_module(key)
         if key.endswith('num_batches_tracked'):
+            continue
+        if is_quant_stat(key):
+            # calibration state: into the int8 convs' buffers; a model
+            # without int8 convs ignores it, as the JAX CLI restores only
+            # the model's own collections
+            if stats:
+                carried_stats = True
+                name = key if key.startswith('backbone.') \
+                    else 'backbone.' + key
+                if name in stats:
+                    updates[name] = torch.as_tensor(value).reshape(())
+                    applied.append(name)
+                else:
+                    unexpected.append(key)
             continue
         name = _port_name(_shortcut_name(key, value), targets)
         if name is None:
@@ -390,10 +454,12 @@ def import_torch_state_dict(model: torch.nn.Module,
         applied.append(name)
     with torch.no_grad():
         for name, value in updates.items():
-            targets[name].copy_(value)
+            (stats[name] if name in stats else targets[name]).copy_(value)
     done = set(applied)
     missing = [n for n in targets
                if n not in done and not n.endswith('num_batches_tracked')]
+    if carried_stats:       # the collection must then match the model's
+        missing += [n for n in stats if n not in done]
     for what, keys, log in (
             ('size-mismatched keys skipped (non-strict load)', mismatched,
              logger.warning),
@@ -480,7 +546,6 @@ def load_weights(model: torch.nn.Module, path: str,
 
 # ------------------------------------------------------ .msgpack checkpoints
 
-_COLLECTIONS = ('params', 'batch_stats')
 _BNI_SUFFIX = {v: k for k, v in _BNI_BRANCH.items()}
 
 
@@ -501,7 +566,8 @@ _JAX_MODULE_RULES = (
                 r'(\d+)\.([13])\.'),
      lambda m: (f'head_mod.consensus.fc_fusion_{m.group(1)}_'
                 f'fc{(int(m.group(2)) + 1) // 2}.')),
-    # BNInception: flat conv / conv_bn pairs -> nested conv / bn
+    # BNInception (InceptionV1-I3D's stem conv stays flat, ``_FAMILY_RULES``):
+    # flat conv / conv_bn pairs -> nested conv / bn
     (re.compile(r'\b(conv1_7x7_s2|conv2_3x3_reduce|conv2_3x3)_bn\.'),
      r'\1.bn.'),
     (re.compile(r'\b(conv1_7x7_s2|conv2_3x3_reduce|conv2_3x3)\.'
@@ -541,6 +607,44 @@ _JAX_MODULE_RULES = (
     (re.compile(r'\bconv1\.bn\.(weight|bias|running_mean|running_var)$'),
      r'MVF_0.bn_\1'),
 )
+_I3D_SUFFIX = {v: k for k, v in _I3D_BRANCH.items()}
+# rules of one vocabulary (``_vocabulary``), applied before the others
+_FAMILY_RULES = {
+    'inception_i3d': (
+        (re.compile(r'\bconv1_7x7_s2_bn\.'), 'conv1_bn.'),
+        # the stem conv is flat: leave it out of BNInception's rule
+        (re.compile(r'\bconv1_7x7_s2\.(?=(weight|bias)$)'),
+         'conv1_7x7_s2_flat.'),
+        (re.compile(r'\binception_(\d[a-z])_(1x1|branch[12]_3x3_reduce'
+                    r'|branch[12]_3x3|pool_proj)(_bn)?\.'),
+         lambda m: (f'inception_{m.group(1)}.{_I3D_SUFFIX[m.group(2)]}.'
+                    f'{"bn" if m.group(3) else "conv"}.')),
+    ),
+    'r3d': (
+        # BatchNorms under the wrapper's 'bn'; blocks a, b, ... -> 0, 1, ...
+        (re.compile(r'\.(bn\d(?:_[st])?|bn_s|bn_T)\.'), r'.\1.bn.'),
+        (re.compile(r'\blayer(\d+)\.([a-z])\.'),
+         lambda m: f'layer{m.group(1)}.'
+                   f'{string.ascii_lowercase.index(m.group(2))}.'),
+    ),
+}
+_FAMILY_AFTER = {'inception_i3d': ((re.compile(r'\bconv1_7x7_s2_flat\.'),
+                                    'conv1_7x7_s2.'),)}
+
+
+def _vocabulary(names) -> str:
+    """The family whose names need their own rules: 'r3d' (letter-named
+    blocks or the R(2+1)D stem), 'inception_i3d' (its branch names), or
+    ''."""
+    names = list(names)
+    if any(re.search(r'\blayer\d+\.[a-z]\.|^backbone\.conv1_s\.', n)
+           for n in names):
+        return 'r3d'
+    if any('_branch1_3x3' in n for n in names):
+        return 'inception_i3d'
+    return ''
+
+
 _JAX_LEAF = {'weight': ('params', 'scale'), 'bias': ('params', 'bias'),
              'running_mean': ('batch_stats', 'mean'),
              'running_var': ('batch_stats', 'var'),
@@ -550,18 +654,22 @@ _JAX_LEAF = {'weight': ('params', 'scale'), 'bias': ('params', 'bias'),
              'bn_running_var': ('batch_stats', 'bn_var')}
 
 
-def _jax_entry(name: str, value: torch.Tensor
+def _jax_entry(name: str, value: torch.Tensor, family: str = ''
                ) -> Optional[Tuple[str, Tuple[str, ...], np.ndarray]]:
     """``(collection, JAX path, value in the JAX layout)`` of a port
-    ``state_dict`` entry (the inverse of ``_torch_entry``); None for
-    ``num_batches_tracked``, which the JAX package does not keep."""
+    ``state_dict`` entry (the inverse of ``_torch_entry``), in the
+    vocabulary ``family`` (``_vocabulary`` of the whole state dict); None
+    for ``num_batches_tracked``, which the JAX package does not keep."""
     if name.endswith('num_batches_tracked'):
         return None
     jname = name
-    for pattern, repl in _JAX_MODULE_RULES:
+    for pattern, repl in (_FAMILY_RULES.get(family, ()) + _JAX_MODULE_RULES
+                          + _FAMILY_AFTER.get(family, ())):
         jname = pattern.sub(repl, jname)
     *mods, leaf = jname.split('.')
     v = value.detach().cpu()
+    if is_quant_stat(leaf):
+        return 'quant_stats', tuple(mods) + (leaf,), v.numpy()
     if leaf == 'shift_conv' and mods[-1] == 'CoST_0':   # (O, I, 1, 3, 3)
         return 'params', tuple(mods) + (leaf,), \
             v[:, :, 0].permute(2, 3, 1, 0).numpy()
@@ -599,11 +707,14 @@ def jax_variables_from_state_dict(state_dict: Dict[str, torch.Tensor]
     ``(3, C)``, Linear and the SE pair -> Dense, the BN and module names. The inverse of ``state_dict_from_jax``;
     ``num_batches_tracked`` is dropped."""
     out: Dict[str, Dict[str, Any]] = {c: {} for c in _COLLECTIONS}
+    family = _vocabulary(state_dict)
     for name, value in state_dict.items():
-        entry = _jax_entry(name, value)
+        entry = _jax_entry(name, value, family)
         if entry is not None:
             coll, path, v = entry
             _set_path(out[coll], path, v)
+    if not out['quant_stats']:      # a model without int8 convs has none
+        del out['quant_stats']
     return out
 
 
@@ -616,10 +727,8 @@ def _load_msgpack(path: str):
     variables = payload['variables']
     extra = sorted(set(variables) - set(_COLLECTIONS))
     if extra:
-        raise NotImplementedError(
-            f'{path}: collections {extra} beyond params and batch_stats; '
-            'quantized backbones and their calibration state are not '
-            'ported yet (ROADMAP.md, A14)')
+        raise ValueError(f'{path}: collections {extra} beyond '
+                         f'{", ".join(_COLLECTIONS)}')
     meta: Dict[str, Any] = {}
     if os.path.exists(path + '.meta.json'):
         with open(path + '.meta.json') as f:
@@ -661,6 +770,7 @@ def optax_state_from_optimizer(model: torch.nn.Module, optimizer,
     with no buffer yet (no step taken) gets zeros, optax's initial trace."""
     clip, layout = _optax_layout(optimizer)
     names = _param_names(model)
+    family = _vocabulary(names.values())
     label_of = {names[id(p)]: g['label'] for g in optimizer.param_groups
                 for p in g['params']}
     inner: Dict[str, Any] = {'frozen': {'inner_state': {}}}
@@ -671,11 +781,11 @@ def optax_state_from_optimizer(model: torch.nn.Module, optimizer,
         if 'trace' in keys:
             tree: Dict[str, Any] = {}
             for name, p in model.named_parameters():
-                _, path, v = _jax_entry(name, p)
+                _, path, v = _jax_entry(name, p, family)
                 if label_of.get(name) == label:
                     buf = optimizer.state.get(p, {}).get('momentum_buffer')
                     v = _jax_entry(name, buf if buf is not None
-                                   else torch.zeros_like(p))[2]
+                                   else torch.zeros_like(p), family)[2]
                 else:
                     v = {}
                 _set_path(tree, path, v)
@@ -718,7 +828,8 @@ def load_optax_state(model: torch.nn.Module, optimizer,
             or inner['frozen'] != {'inner_state': {}}:
         raise _layout_error(f'labels {sorted(inner)}')
     names = _param_names(model)
-    entries = [e for e in (_jax_entry(n, v)
+    family = _vocabulary(names.values())
+    entries = [e for e in (_jax_entry(n, v, family)
                            for n, v in model.state_dict().items()) if e]
     ctx = _TreeContext((path, v.ndim) for _, path, v in entries)
     groups = {g['label']: g['params'] for g in optimizer.param_groups}
@@ -736,7 +847,7 @@ def load_optax_state(model: torch.nn.Module, optimizer,
         leaves = dict(_leaf_paths(chain[keys['trace']]['trace']))
         for p in groups.get(label, []):
             name = names[id(p)]
-            _, path, _ = _jax_entry(name, p)
+            _, path, _ = _jax_entry(name, p, family)
             if path not in leaves:
                 raise _layout_error(f'no {label!r} trace for {name}')
             back, v = _torch_entry(path, np.asarray(leaves.pop(path)),
@@ -757,13 +868,16 @@ def save_msgpack_checkpoint(path: str, model: torch.nn.Module,
     """Write the JAX package's ``.msgpack`` checkpoint of ``model`` (the
     counterpart of ``mvfnet_tpu/utils/checkpoint.py::save_checkpoint``):
     ``{'variables': {'params', 'batch_stats'}, 'opt_state'}`` in flax's
-    layout, the optax state from ``optimizer`` at ``meta['iter']`` steps
-    (``{}`` without one), written atomically (a temporary file in the same
+    layout (with ``quant_stats`` when the model has int8 convs), the optax
+    state from ``optimizer`` at ``meta['iter']`` steps (``{}`` without
+    one), written atomically (a temporary file in the same
     directory, then ``os.replace``), and ``meta`` as the ``.meta.json``
     sidecar."""
     meta = dict(meta or {})
+    from ..models.common import quant_buffers
     payload = {
-        'variables': jax_variables_from_state_dict(model.state_dict()),
+        'variables': jax_variables_from_state_dict(
+            {**model.state_dict(), **quant_buffers(model)}),
         'opt_state': ({} if optimizer is None else optax_state_from_optimizer(
             model, optimizer, meta.get('iter', 0)))}
     dirpath = os.path.dirname(os.path.abspath(path))

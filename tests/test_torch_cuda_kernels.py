@@ -1,5 +1,7 @@
-"""The port's CUDA kernels against their plain PyTorch versions on the card,
-a small train step that must not launch them, a bf16 train loop epoch whose
+"""The port's CUDA kernels against their plain PyTorch versions on the card
+(the fused bottleneck, and the int8 convolution bit for bit at the int8
+path's kinds of shape), a small quantized R50+MVF in bf16 that must launch
+the int8 kernel and no fused one, a small train step that must not launch them, a bf16 train loop epoch whose
 mid-train evaluation must, a feature-extraction pass that must, the eval
 loop's pinned-memory prefetch, the synced BatchNorm on 2-D and 3-D maps,
 and a small I3D in bf16 that must match the CPU and launch no kernel.
@@ -21,6 +23,7 @@ from mvfnet_tpu_torch.engine.optim import build_lr_schedule, build_optimizer
 from mvfnet_tpu_torch.engine.train_step import make_eval_step, make_train_step
 from mvfnet_tpu_torch.models import build_recognizer
 from mvfnet_tpu_torch.ops import fused_block as fb
+from mvfnet_tpu_torch.ops import int8_conv as q8
 
 pytestmark = pytest.mark.cuda
 
@@ -136,7 +139,8 @@ def test_train_steps_launch_no_fused_kernel_and_eval_does(cuda):
 
 
 @pytest.mark.parametrize('option', ['gn', 'avd'])
-def test_gn_and_avd_blocks_do_not_launch_the_kernel(cuda, option):
+def test_gn_and_avd_blocks_do_not_launch_the_kernel(cuda, option,
+                                                   monkeypatch):
     """bf16 eval of two-stage R50s on the card: GroupNorm blocks take the
     plain path (no running statistics to fold), so the GN model launches
     nothing; the avd block (layer2.0, stride 2) is not fused either, so the
@@ -162,11 +166,8 @@ def test_gn_and_avd_blocks_do_not_launch_the_kernel(cuda, option):
     got = step(model, x).float()
     torch.cuda.synchronize()
     launches = dict(fb.bottleneck_eval_cuda.launches_by_shape)
-    fb.FORCE = 'plain'
-    try:
-        want = step(model, x).float()
-    finally:
-        fb.FORCE = None
+    monkeypatch.setattr(fb, 'bottleneck_eval', fb.bottleneck_eval_plain)
+    want = step(model, x).float()
     assert bool(torch.isfinite(got).all())
     assert (got - want).abs().max().item() <= 3e-2 * want.abs().max().item()
     if option == 'gn':
@@ -254,8 +255,8 @@ def test_train_loop_epoch_in_bf16_evaluates_through_the_kernel(cuda,
     assert loop.eval_history[0]['scores'].shape == (4, 2)
 
 
-def test_feature_pass_launches_the_kernel_and_matches_plain(cuda,
-                                                           tmp_path):
+def test_feature_pass_launches_the_kernel_and_matches_plain(cuda, tmp_path,
+                                                           monkeypatch):
     """``evaluate_dataset(extract_feat=True)`` of a bf16 R50+MVF with
     ``fcn_testing`` on 3 tiny rawframe videos (uint8 frames normalized on
     the card): one row of 2 clip volumes x 2048 a video, 2 + 3 fused
@@ -305,12 +306,9 @@ def test_feature_pass_launches_the_kernel_and_matches_plain(cuda,
     assert grown == {('bfloat16', 4, 16, 16, 256, 64): 2 * 3,
                      ('bfloat16', 4, 8, 8, 512, 128): 3 * 3}
     assert feats.shape == (3, 2 * 2048) and np.isfinite(feats).all()
-    fb.FORCE = 'plain'
-    try:
-        plain = evaluate_dataset(model, dataset, extract_feat=True,
-                                 norm_cfg=norm)
-    finally:
-        fb.FORCE = None
+    monkeypatch.setattr(fb, 'bottleneck_eval', fb.bottleneck_eval_plain)
+    plain = evaluate_dataset(model, dataset, extract_feat=True,
+                             norm_cfg=norm)
     assert np.abs(feats - plain).max() <= 3e-2 * np.abs(plain).max()
 
 
@@ -429,3 +427,110 @@ def test_i3d_on_the_card_matches_fp32_cpu_and_launches_no_kernel(cuda):
     assert np.isfinite(m['loss'].item()) and np.isfinite(
         m['grad_norm'].item())
     assert fb.bottleneck_eval_cuda.launches == 0
+
+
+# (x (N, T, H, W, Cin), w (kt, kh, kw, Cout), stride, padding before and
+# after each axis, dilation): 1x1s, a strided 3x3, a dilated one, the 7x7
+# stem (Cin 3: the byte gather, K = 147), a ragged Cout and M, X3D's Cin of
+# 54, and the 3-D kinds (temporal, spatial, full, strided pointwise)
+INT8_SHAPES = [
+    ((2, 1, 16, 16, 64), (1, 1, 1, 256), (1, 1, 1), ((0, 0),) * 3,
+     (1, 1, 1)),
+    ((3, 1, 9, 11, 256), (1, 3, 3, 64), (1, 2, 2),
+     ((0, 0), (1, 1), (1, 1)), (1, 1, 1)),
+    ((1, 1, 12, 12, 128), (1, 3, 3, 96), (1, 1, 1),
+     ((0, 0), (2, 2), (2, 2)), (1, 2, 2)),
+    ((2, 1, 33, 30, 3), (1, 7, 7, 64), (1, 2, 2),
+     ((0, 0), (3, 3), (3, 3)), (1, 1, 1)),
+    ((1, 1, 7, 5, 32), (1, 1, 1, 70), (1, 1, 1), ((0, 0),) * 3,
+     (1, 1, 1)),
+    ((2, 4, 8, 8, 54), (1, 1, 1, 24), (1, 1, 1), ((0, 0),) * 3,
+     (1, 1, 1)),
+    ((1, 6, 10, 10, 64), (3, 1, 1, 64), (2, 1, 1),
+     ((1, 1), (0, 0), (0, 0)), (1, 1, 1)),
+    ((1, 4, 10, 10, 64), (1, 3, 3, 128), (1, 2, 2),
+     ((0, 0), (1, 1), (1, 1)), (1, 1, 1)),
+    ((1, 4, 8, 8, 32), (3, 3, 3, 64), (1, 1, 1), ((1, 1),) * 3,
+     (1, 1, 1)),
+    ((2, 4, 8, 8, 128), (1, 1, 1, 256), (1, 2, 2), ((0, 0),) * 3,
+     (1, 1, 1)),
+]
+
+
+@pytest.mark.parametrize('case', range(len(INT8_SHAPES)))
+def test_int8_conv_equals_plain(cuda, case):
+    """The kernel's int32 accumulators, and its bf16 and f32 epilogues,
+    equal the plain version's bit for bit."""
+    xs, ws, stride, padding, dilation = INT8_SHAPES[case]
+    rng = np.random.RandomState(case)
+    x = torch.from_numpy(rng.randint(-127, 128, xs).astype(np.int8)).cuda()
+    w = torch.from_numpy(rng.randint(-127, 128, ws[:3] + (xs[-1], ws[3]))
+                         .astype(np.int8)).cuda()
+    scale = torch.from_numpy(rng.rand(ws[3]).astype(np.float32) * 1e-4 +
+                             1e-6).cuda()
+    bias = torch.from_numpy(rng.randn(ws[3]).astype(np.float32)).cuda()
+    before = q8.int8_conv_cuda.launches
+    got = q8.int8_conv(x, w, stride, padding, dilation)
+    torch.cuda.synchronize()
+    assert q8.int8_conv_cuda.launches == before + 1
+    want = q8.int8_conv_plain(x, w, stride, padding, dilation)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    for dtype, b in ((torch.bfloat16, bias), (torch.float32, None)):
+        got = q8.int8_conv(x, w, stride, padding, dilation, scale, b, dtype)
+        want = q8.int8_conv_plain(x, w, stride, padding, dilation, scale, b,
+                                  dtype)
+        assert got.dtype == dtype and torch.equal(got, want)
+
+
+def test_int8_conv_raises_on_what_it_does_not_take(cuda):
+    x = torch.zeros(1, 1, 4, 4, 8, dtype=torch.int8, device='cuda')
+    w = torch.zeros(1, 1, 1, 8, 8, dtype=torch.int8, device='cuda')
+    one = ((0, 0),) * 3
+    with pytest.raises(TypeError, match='int8 operands'):
+        q8.int8_conv(x.float(), w, (1, 1, 1), one, (1, 1, 1))
+    with pytest.raises(TypeError, match='float32 or bfloat16'):
+        q8.int8_conv(x, w, (1, 1, 1), one, (1, 1, 1),
+                     torch.ones(8, device='cuda'), None, torch.float16)
+    big = torch.zeros(3, 3, 3, 5000, 8, dtype=torch.int8, device='cuda')
+    with pytest.raises(ValueError, match='overflow'):
+        q8.int8_conv(torch.zeros(1, 4, 4, 4, 5000, dtype=torch.int8,
+                                 device='cuda'), big, (1, 1, 1),
+                     ((1, 1),) * 3, (1, 1, 1))
+
+
+def test_quantized_r50_on_the_card_launches_int8_and_matches_plain(
+        cuda, monkeypatch):
+    """A calibrated int8_static R50+MVF (two stages, MVF in the second) in
+    bf16 on the card: its int8 convs launch the kernel and the fused
+    kernel never runs; the logits equal those of the same model with the
+    int8 kernel's plain version."""
+    t = 4
+    model = build_recognizer(dict(
+        type='Recognizer2D',
+        backbone=dict(type='ResNet', depth=50, num_stages=2, out_indices=(1,),
+                      quant='int8_static', quant_carry=True),
+        cls_head=dict(type='TSNClsHead', spatial_type='avg',
+                      dropout_ratio=0.0, in_channels=512, init_std=0.01,
+                      num_classes=10),
+        module_cfg=dict(type='MVF', n_segment=t, alpha=0.125,
+                        mvf_freq=(0, 1, 0, 0), mode='THW'),
+        dtype='bfloat16'), test_cfg=dict(average_clips=None))
+    model.init_weights(torch.Generator().manual_seed(0), randomize_bn=True)
+    model = model.cuda().eval()
+    x = torch.from_numpy(np.random.RandomState(0).randn(1, 2 * t, 64, 64, 3)
+                         .astype(np.float32)).cuda()
+    with torch.inference_mode():
+        with model.calibrate():
+            model(x, None, return_loss=False)
+        fused, before = fb.bottleneck_eval_cuda.launches, \
+            q8.int8_conv_cuda.launches
+        got = model(x, None, return_loss=False)
+        torch.cuda.synchronize()
+        launched = q8.int8_conv_cuda.launches - before
+        monkeypatch.setattr(q8, 'int8_conv', q8.int8_conv_plain)
+        want = model(x, None, return_loss=False)
+    assert fb.bottleneck_eval_cuda.launches == fused
+    # 3 convs a block (4 where a shortcut projects), 7 blocks, MVF's conv1
+    # split in two (layer2's 4 blocks): 21 + 2 + 4
+    assert launched == 27
+    assert torch.equal(got, want)

@@ -331,13 +331,25 @@ def test_cli_scores_a_jax_msgpack_as_its_pth(setup, tmp_path):
 
 
 def test_cli_refuses_what_is_not_ported(setup, tmp_path, monkeypatch):
+    """What the CLI once refused it now runs (the int8 path): a
+    ``.msgpack`` with a ``quant_stats`` collection scores in an
+    unquantized model as without it (the JAX CLI restores only the
+    model's collections), and an ``int8_static`` config calibrates on
+    ``--calib_videos`` videos first, or refuses to score uncalibrated with
+    ``--calib_videos 0``. ``--launcher env`` without torchrun's variables
+    still raises."""
     root, variables = setup
     config = write_config(root, tmp_path / 'cfg.py')
+    stats = {'backbone_mod': {'layer1_0': {'conv1': {
+        'act_amax': np.float32(2.5), 'act_amax_calibrated': np.float32(1)}}}}
+    exact = jax.tree_util.tree_map(
+        lambda v: np.asarray(v, np.float32).astype(np.float64), variables)
     calibrated = str(tmp_path / 'quant.msgpack')
-    jax_save(calibrated, dict(variables,
-                              quant_stats={'act_scale': np.ones(3)}))
-    with pytest.raises(NotImplementedError, match='A14'):
-        cli.main([config, calibrated, '--device', 'cpu'])
+    jax_save(calibrated, dict(exact, quant_stats=stats))
+    got = cli.main([config, calibrated, '--device', 'cpu'])
+    want = cli.main([config, str(root / 'model.pth'), '--device', 'cpu'])
+    np.testing.assert_array_equal(got['scores'], want['scores'])
+    assert got['quant_stats'] == {}
     # --launcher env needs torchrun's variables (tests/test_torch_dist.py
     # runs the CLI under torchrun)
     for k in ('MASTER_ADDR', 'MASTER_PORT', 'WORLD_SIZE', 'RANK',
@@ -349,5 +361,13 @@ def test_cli_refuses_what_is_not_ported(setup, tmp_path, monkeypatch):
     quant = tmp_path / 'quant.py'
     quant.write_text(f"_base_ = '{config}'\n"
                      "model = dict(backbone=dict(quant='int8_static'))\n")
-    with pytest.raises(NotImplementedError, match='A14'):
-        cli.main([str(quant), str(root / 'model.pth'), '--device', 'cpu'])
+    with pytest.raises(ValueError, match='calibrated'):
+        cli.main([str(quant), str(root / 'model.pth'), '--device', 'cpu',
+                  '--calib_videos', '0'])
+    out = cli.main([str(quant), str(root / 'model.pth'), '--device', 'cpu',
+                    '--calib_videos', '1'])
+    assert out['scores'].shape == want['scores'].shape
+    assert np.isfinite(out['scores']).all()
+    markers = [v for k, v in out['quant_stats'].items()
+               if k.endswith('calibrated')]
+    assert markers and all(float(v) == 1 for v in markers)

@@ -373,18 +373,24 @@ def test_head_pools_dropout_and_features():
 
 
 def test_unported_options_raise():
-    """The int8 path raises (A14), and so do the 3-D backbones still
-    queued (A13b). Non-local blocks are ported
+    """The options once refused are ported: the int8 path (A14) puts
+    ``QuantConv3d`` at the conv types ``quant_ops`` names, and the 3-D
+    backbones once queued (A13b) build. Non-local blocks are ported
     (``test_torch_temporal_modules.py``): none outside
-    ``nonlocal_stages``."""
+    ``nonlocal_stages``. An unknown depth still raises."""
     bb = resnet_i3d.ResNet_I3D(depth=50, nonlocal_cfg=dict(type='NL'))
     assert not any(n.endswith('nonlocal_block')
                    for n, _ in bb.named_modules())
     for name in ('ResNet_R3D', 'InceptionV1_I3D'):
-        with pytest.raises(NotImplementedError, match='A13b'):
-            build_backbone(dict(type=name, depth=18))
-    with pytest.raises(NotImplementedError, match='A14'):
-        resnet_i3d.ResNet_I3D(depth=50, quant='int8')
+        assert type(build_backbone(dict(type=name))).__name__ == name
+    quant = resnet_i3d.ResNet_I3D(depth=50, quant='int8')
+    block = quant.layer1[0]
+    # '3x1x1': the temporal conv1 and the pointwise conv3 stay plain
+    assert [type(c).__name__ for c in (block.conv1, block.conv2,
+                                       block.conv3)] == [
+        'Conv3d', 'QuantConv3d', 'Conv3d']
+    assert list(quant.state_dict()) == list(
+        resnet_i3d.ResNet_I3D(depth=50).state_dict())
     with pytest.raises(KeyError, match='depth 26'):
         resnet_i3d.ResNet_I3D(depth=26)
 

@@ -550,13 +550,25 @@ def test_train_cli_refuses_what_is_not_ported(tiny_data, tmp_path,
             train_cli.main([config, '--gpus', '2'])
     cfg = Config.fromfile(config)
     model = build_recognizer(dict(cfg.model))
+    # a .msgpack with a quant_stats collection resumes as without it: the
+    # JAX TrainLoop restores params and batch_stats alone
     calibrated = str(tmp_path / 'latest.msgpack')
-    variables = jax_variables_from_state_dict(model.state_dict())
-    jax_save(calibrated, dict(variables,
-                              quant_stats={'act_scale': np.ones(3)}))
-    with pytest.raises(NotImplementedError, match='A14'):
-        train_cli.main([config, '--device', 'cpu', '--resume_from',
-                        calibrated])
+    trained = build_recognizer(dict(cfg.model))
+    trained.init_weights(torch.Generator().manual_seed(5),
+                         randomize_bn=True)
+    variables = jax_variables_from_state_dict(trained.state_dict())
+    stats = {'backbone_mod': {'layer1_0': {'conv1': {
+        'act_amax': np.float32(2.5), 'act_amax_calibrated': np.float32(1)}}}}
+    jax_save(calibrated, dict(variables, quant_stats=stats),
+             meta={'epoch': 1, 'iter': 2})
+    loop = TrainLoop(model, build_dataset(dict(cfg.data['train'])), cfg,
+                     device='cpu')
+    loop.resume(calibrated)
+    assert (loop.epoch, loop.iter) == (1, 2)
+    for k, v in trained.state_dict().items():
+        if not k.endswith('num_batches_tracked'):
+            assert torch.equal(model.state_dict()[k], v), k
+    del loop
     # with_cp is ported: the loop hands it to the step as remat, and the
     # backbone checkpoints its stages
     cp = Config.fromfile(config)

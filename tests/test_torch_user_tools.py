@@ -193,5 +193,12 @@ def test_validate_k400_verdict(frames_root, tmp_path, capsys):
     assert verdict['mean_class_acc'] == round(fused['mean_class'] * 100, 2)
 
     assert validate_k400.main(common + ['--expected-top1', '101.0']) == 1
-    with pytest.raises(NotImplementedError, match='A14'):
-        validate_k400.main(common + ['--quant', 'int8_static'])
+    # the int8 path, once refused: calibrated on --calib-videos, the
+    # verdict names it
+    assert validate_k400.main(common + [
+        '--quant', 'int8_static', '--quant-stages', '1', '0', '0', '0',
+        '--calib-videos', '2', '--expected-top1', '0.0', '--out',
+        str(out)]) == 0
+    quant = json.loads(out.read_text())
+    assert quant['quant'] == 'int8_static' and quant['n_videos'] == 4
+    assert list(quant) == _jax_result_keys()
