@@ -14,26 +14,30 @@
 // strides, padding before each axis (the part after it follows from the
 // output size) and dilations; acc[m, c] = sum_k A[m, k] * w[c, k] in exact
 // int32, with m the output pixel (n, to, ho, wo) and k the tap (ikt, ikh,
-// ikw, ci). A 2-D conv is the case T = kt = 1. Epilogues: the int32
-// accumulators themselves (the integer carry), or acc as f32 x scale[c]
-// (+ bias[c]) cast to f32 or bf16, rounded as the plain version rounds:
-// __int2float_rn, then __fmul_rn, then __fadd_rn (with -O3 nvcc would
-// otherwise contract the two into an FMA).
+// ikw, ci). A 2-D conv is the case T = kt = 1. Cin is a multiple of 16:
+// the wrapper zero-pads thinner channels (zeros add nothing to the sum).
+// Epilogues: the int32 accumulators themselves (the integer carry), or acc
+// as f32 x scale[c] (+ bias[c]) cast to f32 or bf16, rounded as the plain
+// version rounds: __int2float_rn, then __fmul_rn, then __fadd_rn (with -O3
+// nvcc would otherwise contract the two into an FMA).
 //
-// What bounds it on this card: at R50's shapes the products are 2 x
-// 64-2048 x K MACs a pixel with K = 64-4608, far above the int8 ridge
-// (about 590 operations a byte at 1,979 TOPS over 3.35 TB/s) for the 3x3
-// convs and near it for the 1x1 ones; so operations, with the bytes of x
-// and the output close behind for the 1x1 convs. This first version is
-// simple: one block of 8 warps computes a 128 x 64 output tile; x's im2col
-// rows (gathered per 16-byte piece, zero-filled outside the image and past
-// K) and w's rows stream through two shared-memory stages with cp.async,
-// each stage 64 deep in K; each warp runs mma.sync m16n8k32 s8 on a 32 x 32
-// sub-tile from 32-bit shared loads. Cin not a multiple of 16 (the 7x7
-// stem's Cin = 3, K = 147; X3D's thin layers) gathers byte by byte instead.
-// Left for later: wgmma on s8 with TMA and warp specialisation, ldmatrix,
-// larger tiles for Cout >= 128, and the quantize pass of the next conv
-// fused into this epilogue.
+// What bounds it on this card: the int8 ridge is about 590 operations a
+// byte (1,979 TOPS over 3.35 TB/s). R50's 1x1 convs (2 x Cout MACs a byte
+// of x at K = Cin) sit below it and are bound by the bytes of x and of the
+// output; its 3x3 convs from layer2 on sit above it and are bound by the
+// tensor cores.
+//
+// The design: one block of two warpgroups computes a 128 x BN output tile
+// (BN = 64, 128 or 256, a template argument chosen per launch so that x is
+// read once for Cout <= 256), each warpgroup 64 rows of it with
+// wgmma.mma_async m64nBNk32 s32.s8.s8, both operands K-major in shared
+// memory in the 128-byte swizzled layout read through matrix descriptors.
+// K streams through a ring of up to four stages of 128 bytes of K each:
+// x's im2col rows are gathered per 16-byte piece with cp.async (zero-filled
+// outside the image and past K) and written to their swizzled addresses;
+// so are w's rows. The epilogue stages the tile through shared memory and
+// writes it out with 16-byte stores, a row's bytes from neighbouring
+// threads.
 //
 // Built by nvcc into a shared library with a plain C interface, loaded by
 // mvfnet_tpu_torch/ops/_cuda.py through ctypes.
@@ -44,11 +48,11 @@
 
 namespace {
 
-constexpr int kBM = 128;          // output pixels a block
-constexpr int kBN = 64;           // output channels a block
-constexpr int kBK = 64;           // K bytes a stage
-constexpr int kLD = kBK + 16;     // shared row stride: conflict-free frags
+constexpr int kBM = 128;          // output pixels a block: two warpgroups
+constexpr int kBK = 128;          // K bytes a stage: one swizzle row
 constexpr int kThreads = 256;
+constexpr int kMaxStages = 4;
+constexpr int kRowPad = 8;        // staged output row: BN + 8 elements
 
 struct ConvShape {
   int n, t, h, w, cin;            // input
@@ -61,10 +65,13 @@ struct ConvShape {
   int k;                          // kt * kh * kw * cin
 };
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            int bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
                "l"(src), "r"(bytes));
 }
 
@@ -72,26 +79,165 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
-__device__ __forceinline__ void cp_async_wait1() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+// wait until at most `pending` of this thread's groups are in flight
+__device__ __forceinline__ void cp_async_wait(int pending) {
+  if (pending >= 2)
+    asm volatile("cp.async.wait_group 2;\n" ::: "memory");
+  else if (pending == 1)
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  else
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void cp_async_wait0() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+// generic-proxy writes (cp.async) made visible to wgmma's async proxy
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void mma_s8(int* c, uint32_t a0, uint32_t a1,
-                                       uint32_t a2, uint32_t a3, uint32_t b0,
-                                       uint32_t b1) {
+// Byte offset of 16-byte chunk `chunk` of row `row` in a tile of 128-byte
+// rows under the 128-byte swizzle (the tile 1024-byte aligned): the chunk
+// index XOR the row's index within its group of 8 rows.
+__device__ __forceinline__ int swizzle(int row, int chunk) {
+  return row * 128 + ((chunk ^ (row & 7)) << 4);
+}
+
+// wgmma matrix descriptor of a K-major operand in that layout: start
+// address >> 4, leading byte offset 1 (unused when K is swizzled), stride
+// byte offset 1024 >> 4 (from one group of 8 rows to the next), layout
+// 128-byte swizzle. A k32 step adds 32 bytes to the start address.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (64ull << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// d[BN / 2] += A (64 x 32, descriptor a) * B (BN x 32, descriptor b)^T;
+// thread t of the warpgroup holds rows 16 (t / 32) + (t % 32) / 4 (+ 8) and
+// columns 8 j + 2 (t % 4) (+ 1) in d[4 j .. 4 j + 3].
+template <int BN>
+__device__ __forceinline__ void wgmma_s8(int (&d)[BN / 2], uint64_t a,
+                                         uint64_t b);
+
+template <>
+__device__ __forceinline__ void wgmma_s8<64>(int (&d)[32], uint64_t a,
+                                              uint64_t b) {
   asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p;\n}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31])
+      : "l"(a), "l"(b), "r"(1));
 }
 
-// Where output pixel m reads its input: the batch's base pointer offset and
-// the first input coordinate of each axis (negative inside the padding).
+template <>
+__device__ __forceinline__ void wgmma_s8<128>(int (&d)[64], uint64_t a,
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
+        "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_s8<256>(int (&d)[128], uint64_t a,
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p;\n}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
+        "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]),
+        "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]),
+        "+r"(d[70]), "+r"(d[71]), "+r"(d[72]), "+r"(d[73]), "+r"(d[74]),
+        "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]),
+        "+r"(d[85]), "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]),
+        "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]),
+        "+r"(d[95]), "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]),
+        "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]), "+r"(d[104]),
+        "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]),
+        "+r"(d[110]), "+r"(d[111]), "+r"(d[112]), "+r"(d[113]), "+r"(d[114]),
+        "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]),
+        "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// Where output pixel m reads its input: the batch's base offset and the
+// first input coordinate of each axis (negative inside the padding).
 struct RowOrigin {
   long long base;   // element offset of frame (n, 0, 0, 0)
   int t0, h0, w0;
@@ -116,181 +262,232 @@ __device__ __forceinline__ RowOrigin row_origin(const ConvShape& s,
   return r;
 }
 
-// Element offset of x at (row, k), or -1 outside the image or past K.
-__device__ __forceinline__ long long x_offset(const ConvShape& s,
-                                              const RowOrigin& r, int k) {
-  if (!r.valid || k >= s.k) return -1;
-  const int tap = k / s.cin;
-  const int ci = k - tap * s.cin;
-  const int ikw = tap % s.kw;
-  const int rest = tap / s.kw;
-  const int ikh = rest % s.kh;
-  const int ikt = rest / s.kh;
-  const int ti = r.t0 + ikt * s.dt;
-  const int hi = r.h0 + ikh * s.dh;
-  const int wi = r.w0 + ikw * s.dw;
-  if (ti < 0 || ti >= s.t || hi < 0 || hi >= s.h || wi < 0 || wi >= s.w)
-    return -1;
-  return r.base + ((static_cast<long long>(ti) * s.h + hi) * s.w + wi) *
-                      s.cin + ci;
-}
-
-// One K stage of A (kBM x kBK) and B (kBN x kBK) into shared memory.
-// vec: Cin and K multiples of 16 and 16-byte aligned operands, so that each
-// 16-byte piece lies in one tap: cp.async, zero-filled where it reads
-// nothing. Otherwise byte by byte.
+// Thread t gathers 16-byte chunk t % 8 of A rows t / 8 + 32 i (i < 4) and
+// of B rows t / 8 + 32 i (i < BN / 32): a warp reads four whole rows of 128
+// contiguous bytes wherever a row's 128 bytes lie in one tap.
+template <int BN>
 __device__ __forceinline__ void load_stage(
     const ConvShape& s, const int8_t* __restrict__ x,
-    const int8_t* __restrict__ w, int8_t* As, int8_t* Bs, int k0,
-    const RowOrigin (&rows)[2], long long n_base, bool vec) {
-  const int tid = threadIdx.x;
-  if (vec) {
+    const int8_t* __restrict__ w, uint32_t a_smem, uint32_t b_smem, int k0,
+    const RowOrigin (&rows)[4], long long n_base) {
+  const int chunk = threadIdx.x & 7, row0 = threadIdx.x >> 3;
+  const int k = k0 + chunk * 16;
+  // the chunk's tap: the same for the thread's four rows
+  int ikt = 0, ikh = 0, ikw = 0, ci = 0;
+  const bool in_k = k < s.k;
+  if (in_k) {
+    const int tap = k / s.cin;
+    ci = k - tap * s.cin;
+    ikw = tap % s.kw;
+    const int rest = tap / s.kw;
+    ikh = rest % s.kh;
+    ikt = rest / s.kh;
+  }
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {        // A: 512 pieces of 16 bytes
-      const int piece = tid + i * kThreads;
-      const int row = piece >> 2, part = piece & 3;
-      const long long off = x_offset(s, rows[i], k0 + part * 16);
-      cp_async16(As + row * kLD + part * 16, off >= 0 ? x + off : x,
-                 off >= 0 ? 16 : 0);
-    }
-    {                                    // B: 256 pieces
-      const int row = tid >> 2, part = tid & 3;
-      const long long c = n_base + row;
-      const int k = k0 + part * 16;
-      const bool ok = c < s.cout && k < s.k;
-      cp_async16(Bs + row * kLD + part * 16,
-                 ok ? w + c * s.k + k : w, ok ? 16 : 0);
-    }
-    return;
+  for (int i = 0; i < 4; ++i) {
+    const RowOrigin& r = rows[i];
+    const int ti = r.t0 + ikt * s.dt;
+    const int hi = r.h0 + ikh * s.dh;
+    const int wi = r.w0 + ikw * s.dw;
+    const bool ok = in_k && r.valid && ti >= 0 && ti < s.t && hi >= 0 &&
+                    hi < s.h && wi >= 0 && wi < s.w;
+    const long long off =
+        ok ? r.base + ((static_cast<long long>(ti) * s.h + hi) * s.w + wi) *
+                          s.cin + ci
+           : 0;
+    cp_async16(a_smem + swizzle(row0 + 32 * i, chunk), x + off, ok ? 16 : 0);
   }
-  {                                      // A: 32 bytes a thread
-    const int row = tid >> 1, first = (tid & 1) * 32;
-    const RowOrigin& r = rows[0];
-    for (int j = 0; j < 32; ++j) {
-      const long long off = x_offset(s, r, k0 + first + j);
-      As[row * kLD + first + j] = off >= 0 ? x[off] : 0;
-    }
-  }
-  {                                      // B: 16 bytes a thread
-    const int row = tid >> 2, first = (tid & 3) * 16;
+#pragma unroll
+  for (int i = 0; i < BN / 32; ++i) {
+    const int row = row0 + 32 * i;
     const long long c = n_base + row;
-    for (int j = 0; j < 16; ++j) {
-      const int k = k0 + first + j;
-      Bs[row * kLD + first + j] =
-          (c < s.cout && k < s.k) ? w[c * s.k + k] : 0;
-    }
+    const bool ok = in_k && c < s.cout;
+    cp_async16(b_smem + swizzle(row, chunk), ok ? w + c * s.k + k : w,
+               ok ? 16 : 0);
   }
 }
 
-// epilogue: 0 int32, 1 float32, 2 bfloat16 (the latter two rescaled)
-__global__ void __launch_bounds__(kThreads)
+template <int EPI> struct OutType { using T = int; };
+template <> struct OutType<1> { using T = float; };
+template <> struct OutType<2> { using T = __nv_bfloat16; };
+
+// Two neighbouring output columns of one row, rescaled unless EPI is 0.
+template <int EPI>
+__device__ __forceinline__ void store_pair(typename OutType<EPI>::T* dst,
+                                           int v0, int v1, float s0,
+                                           float s1, float b0, float b1,
+                                           bool has_bias) {
+  if constexpr (EPI == 0) {
+    *reinterpret_cast<int2*>(dst) = make_int2(v0, v1);
+  } else {
+    float f0 = __fmul_rn(__int2float_rn(v0), s0);
+    float f1 = __fmul_rn(__int2float_rn(v1), s1);
+    if (has_bias) {
+      f0 = __fadd_rn(f0, b0);
+      f1 = __fadd_rn(f1, b1);
+    }
+    if constexpr (EPI == 1)
+      *reinterpret_cast<float2*>(dst) = make_float2(f0, f1);
+    else
+      *reinterpret_cast<__nv_bfloat162*>(dst) =
+          __halves2bfloat162(__float2bfloat16_rn(f0), __float2bfloat16_rn(f1));
+  }
+}
+
+// epilogue EPI: 0 int32, 1 float32, 2 bfloat16 (the latter two rescaled).
+// `stages` (2-4) is the ring's depth; block b computes output tile
+// (b / n_tiles, b % n_tiles), so the blocks of one row of tiles, which
+// read the same x, run side by side.
+template <int BN, int EPI>
+__global__ void __launch_bounds__(kThreads, 1)
     int8_conv_kernel(ConvShape s, const int8_t* __restrict__ x,
                      const int8_t* __restrict__ w, void* __restrict__ out,
                      const float* __restrict__ scale,
-                     const float* __restrict__ bias, int epilogue, int vec) {
-  __shared__ __align__(16) int8_t As[2][kBM * kLD];
-  __shared__ __align__(16) int8_t Bs[2][kBN * kLD];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t4 = (lane & 3) * 4;
-  const int wm = (warp & 3) * 32, wn = (warp >> 2) * 32;
-  const long long m_base = static_cast<long long>(blockIdx.x) * kBM;
-  const long long n_base = static_cast<long long>(blockIdx.y) * kBN;
+                     const float* __restrict__ bias, int stages,
+                     int n_tiles) {
+  using Out = typename OutType<EPI>::T;
+  constexpr int kA = kBM * kBK, kStage = kA + BN * kBK;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const long long m_base = static_cast<long long>(blockIdx.x / n_tiles) * kBM;
+  const long long n_base = static_cast<long long>(blockIdx.x % n_tiles) * BN;
 
-  // the A rows this thread gathers: tid / 4 and tid / 4 + 64 in the
-  // 16-byte path, tid / 2 in the byte path
-  RowOrigin rows[2];
-  rows[0] = row_origin(s, m_base + (vec ? tid >> 2 : tid >> 1));
-  rows[1] = row_origin(s, m_base + (tid >> 2) + 64);
+  RowOrigin rows[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    rows[i] = row_origin(s, m_base + (tid >> 3) + 32 * i);
 
-  int acc[2][4][4];
+  int acc[BN / 2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
 
-  const int stages = (s.k + kBK - 1) / kBK;
-  load_stage(s, x, w, As[0], Bs[0], 0, rows, n_base, vec);
-  cp_async_commit();
-  for (int st = 0; st < stages; ++st) {
-    const int buf = st & 1;
-    if (st + 1 < stages) {
-      load_stage(s, x, w, As[buf ^ 1], Bs[buf ^ 1], (st + 1) * kBK, rows,
-                 n_base, vec);
-      cp_async_commit();
-      cp_async_wait1();
+  const uint32_t ring = smem_addr(smem);
+  const int nk = (s.k + kBK - 1) / kBK;
+  for (int st = 0; st < stages - 1; ++st) {
+    if (st < nk)
+      load_stage<BN>(s, x, w, ring + st * kStage, ring + st * kStage + kA,
+                     st * kBK, rows, n_base);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait(stages - 2);   // stage kt has landed, for this thread
+    fence_proxy_async();
+    __syncthreads();             // for every thread; slot kt - 1 is free
+    const int next = kt + stages - 1;
+    if (next < nk) {
+      const uint32_t slot = ring + (next % stages) * kStage;
+      load_stage<BN>(s, x, w, slot, slot + kA, next * kBK, rows, n_base);
+    }
+    cp_async_commit();
+    const uint32_t a = ring + (kt % stages) * kStage + wg * 64 * kBK;
+    const uint32_t b = ring + (kt % stages) * kStage + kA;
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kBK / 32; ++ks)
+      wgmma_s8<BN>(acc, smem_desc(a + ks * 32), smem_desc(b + ks * 32));
+    wgmma_commit();
+    wgmma_wait0();
+  }
+  cp_async_wait(0);
+  __syncthreads();               // the ring is free: stage the tile there
+
+  constexpr int kLds = BN + kRowPad;
+  Out* tile = reinterpret_cast<Out*>(smem);
+  const int warp = (tid & 127) >> 5, lane = tid & 31;
+  const int r0 = wg * 64 + warp * 16 + (lane >> 2);
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int col = j * 8 + (lane & 3) * 2;
+    const long long c = n_base + col;
+    float s0 = 0.f, s1 = 0.f, b0 = 0.f, b1 = 0.f;
+    if (EPI != 0) {
+      if (c < s.cout) {
+        s0 = scale[c];
+        if (bias) b0 = bias[c];
+      }
+      if (c + 1 < s.cout) {
+        s1 = scale[c + 1];
+        if (bias) b1 = bias[c + 1];
+      }
+    }
+#pragma unroll
+    for (int half = 0; half < 2; ++half)
+      store_pair<EPI>(tile + (r0 + 8 * half) * kLds + col,
+                      acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1], s0,
+                      s1, b0, b1, bias != nullptr);
+  }
+  __syncthreads();
+
+  // 16 bytes a thread, a row's chunks from neighbouring threads
+  constexpr int kVec = 16 / sizeof(Out), kChunks = BN / kVec;
+  const long long left = s.cout - n_base;
+  const int ncols = left < BN ? static_cast<int>(left) : BN;
+  const bool vec = s.cout % kVec == 0;
+  Out* o = static_cast<Out*>(out);
+  for (int idx = tid; idx < kBM * kChunks; idx += kThreads) {
+    const int row = idx / kChunks, col = (idx % kChunks) * kVec;
+    const long long m = m_base + row;
+    if (m >= s.m || col >= ncols) continue;
+    Out* dst = o + m * s.cout + n_base + col;
+    const Out* src = tile + row * kLds + col;
+    if (vec) {
+      *reinterpret_cast<int4*>(dst) = *reinterpret_cast<const int4*>(src);
     } else {
-      cp_async_wait0();
+      for (int e = 0; e < kVec && col + e < ncols; ++e) dst[e] = src[e];
     }
-    __syncthreads();
-    const int8_t* a = As[buf];
-    const int8_t* b = Bs[buf];
-#pragma unroll
-    for (int ks = 0; ks < kBK; ks += 32) {
-      uint32_t af[2][4], bf[4][2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int8_t* lo = a + (wm + i * 16 + g) * kLD + ks + t4;
-        const int8_t* hi = lo + 8 * kLD;
-        af[i][0] = *reinterpret_cast<const uint32_t*>(lo);
-        af[i][1] = *reinterpret_cast<const uint32_t*>(hi);
-        af[i][2] = *reinterpret_cast<const uint32_t*>(lo + 16);
-        af[i][3] = *reinterpret_cast<const uint32_t*>(hi + 16);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int8_t* p = b + (wn + j * 8 + g) * kLD + ks + t4;
-        bf[j][0] = *reinterpret_cast<const uint32_t*>(p);
-        bf[j][1] = *reinterpret_cast<const uint32_t*>(p + 16);
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          mma_s8(acc[i][j], af[i][0], af[i][1], af[i][2], af[i][3],
-                 bf[j][0], bf[j][1]);
-    }
-    __syncthreads();   // the buffer is refilled two stages on
   }
+}
 
-  // fragment (i, j): rows wm + i*16 + g (+8), columns wn + j*8 + t4/2 (+1)
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const long long m = m_base + wm + i * 16 + g + half * 8;
-      if (m >= s.m) continue;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const long long c = n_base + wn + j * 8 + t4 / 2 + e;
-          if (c >= s.cout) continue;
-          const int v = acc[i][j][half * 2 + e];
-          const long long at = m * s.cout + c;
-          if (epilogue == 0) {
-            static_cast<int*>(out)[at] = v;
-            continue;
-          }
-          float f = __fmul_rn(__int2float_rn(v), scale[c]);
-          if (bias) f = __fadd_rn(f, bias[c]);
-          if (epilogue == 1)
-            static_cast<float*>(out)[at] = f;
-          else
-            static_cast<__nv_bfloat16*>(out)[at] = __float2bfloat16_rn(f);
-        }
-      }
-    }
+template <int BN, int EPI>
+int launch(const ConvShape& s, const int8_t* x, const int8_t* w, void* out,
+           const float* scale, const float* bias, cudaStream_t stream) {
+  using Out = typename OutType<EPI>::T;
+  constexpr size_t kStage = static_cast<size_t>(kBM + BN) * kBK;
+  const int nk = (s.k + kBK - 1) / kBK;
+  const int stages = nk < 2 ? 2 : (nk > kMaxStages ? kMaxStages : nk);
+  const size_t ring = (nk < stages ? nk : stages) * kStage;
+  const size_t staged = static_cast<size_t>(kBM) * (BN + kRowPad) * sizeof(Out);
+  const size_t bytes = (ring > staged ? ring : staged) + 1024;  // alignment
+  auto kernel = int8_conv_kernel<BN, EPI>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kMaxStages * kStage + 1024));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long m_tiles = (s.m + kBM - 1) / kBM;
+  const int n_tiles = (s.cout + BN - 1) / BN;
+  if (m_tiles * n_tiles > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  kernel<<<static_cast<unsigned>(m_tiles * n_tiles), kThreads, bytes,
+           stream>>>(s, x, w, out, scale, bias, stages, n_tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int BN>
+int launch_bn(const ConvShape& s, const int8_t* x, const int8_t* w,
+              void* out, const float* scale, const float* bias,
+              int epilogue, cudaStream_t stream) {
+  switch (epilogue) {
+    case 0: return launch<BN, 0>(s, x, w, out, scale, bias, stream);
+    case 1: return launch<BN, 1>(s, x, w, out, scale, bias, stream);
+    case 2: return launch<BN, 2>(s, x, w, out, scale, bias, stream);
   }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 extern "C" {
 
-// dims: n t h w cin, to ho wo cout, kt kh kw, st sh sw, pt ph pw, dt dh dw
-// (21 ints). Returns the launch's cudaError_t.
+// The interface's version: 2 takes the tile width in dims[21] and Cin a
+// multiple of 16 (the first kernel took 21 dims and any Cin).
+int int8_conv_abi(void) { return 2; }
+
+// dims: n t h w cin, to ho wo cout, kt kh kw, st sh sw, pt ph pw, dt dh dw,
+// then the tile width BN (64, 128 or 256) (22 ints). Cin must be a
+// multiple of 16 and x and w 16-byte aligned. Returns the launch's
+// cudaError_t.
 int int8_conv_launch(const void* x, const void* w, void* out,
                      const void* scale, const void* bias, const int* dims,
                      int epilogue, void* stream) {
@@ -304,18 +501,20 @@ int int8_conv_launch(const void* x, const void* w, void* out,
   s.dt = dims[18]; s.dh = dims[19]; s.dw = dims[20];
   s.m = static_cast<long long>(s.n) * s.to * s.ho * s.wo;
   s.k = s.kt * s.kh * s.kw * s.cin;
-  const int vec = (s.cin % 16 == 0 && s.k % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(w) % 16 == 0)
-                      ? 1
-                      : 0;
-  const dim3 grid(static_cast<unsigned>((s.m + kBM - 1) / kBM),
-                  static_cast<unsigned>((s.cout + kBN - 1) / kBN));
-  int8_conv_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      s, static_cast<const int8_t*>(x), static_cast<const int8_t*>(w), out,
-      static_cast<const float*>(scale), static_cast<const float*>(bias),
-      epilogue, vec);
-  return static_cast<int>(cudaGetLastError());
+  if (s.cin % 16 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(w) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto* xi = static_cast<const int8_t*>(x);
+  const auto* wi = static_cast<const int8_t*>(w);
+  const auto* sc = static_cast<const float*>(scale);
+  const auto* bi = static_cast<const float*>(bias);
+  const auto st = static_cast<cudaStream_t>(stream);
+  switch (dims[21]) {
+    case 64: return launch_bn<64>(s, xi, wi, out, sc, bi, epilogue, st);
+    case 128: return launch_bn<128>(s, xi, wi, out, sc, bi, epilogue, st);
+    case 256: return launch_bn<256>(s, xi, wi, out, sc, bi, epilogue, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

@@ -328,6 +328,15 @@ class _QuantStats:
             return q8.quantize_weight(w)
 
 
+def _packed(wq: torch.Tensor) -> torch.Tensor:
+    """An int8 ``(O, I, [kt,] kh, kw)`` weight in the int8 kernel's layout
+    ``(Cout, kt, kh, kw, Cin)``, contiguous: the one copy of the quantized
+    weight a call makes."""
+    with record_function('int8_weights'):
+        wp = wq.permute(0, *range(2, wq.ndim), 1)
+        return (wp[:, None] if wq.ndim == 4 else wp).contiguous()
+
+
 def _pairs(padding) -> Tuple[Tuple[int, int], ...]:
     return tuple((p, p) for p in padding)
 
@@ -373,7 +382,6 @@ class QuantConv2d(Conv2d, _QuantStats):
         if self.stem:
             w = w.to(x.dtype).float()
         wq, sw = self._quant_weight(w)
-        w5 = wq.permute(2, 3, 1, 0)[None]               # (1, kh, kw, I, O)
         stride, padding, dilation = self._geometry()
         if self.split:
             if carry_out or isinstance(x, IntCarry):
@@ -391,13 +399,16 @@ class QuantConv2d(Conv2d, _QuantStats):
             sx, xq = self._quant_input(x, 'act_amax')
             dtype = x.dtype
         scale = sx * sw
+        wp = _packed(wq)
         if carry_out:
             if self.bias is not None:
                 raise ValueError('carry_out with bias is unsupported')
-            acc = q8.int8_conv(xq[:, None], w5, stride, padding, dilation)
+            acc = q8.int8_conv_packed(xq[:, None], wp, stride, padding,
+                                      dilation)
             return IntCarry(acc[:, 0], scale, dtype)
-        out = q8.int8_conv(xq[:, None], w5, stride, padding, dilation,
-                           scale=scale, bias=self.bias, out_dtype=dtype)
+        out = q8.int8_conv_packed(xq[:, None], wp, stride, padding, dilation,
+                                  scale=scale, bias=self.bias,
+                                  out_dtype=dtype)
         return to_nchw(out[:, 0])
 
     def _forward_split(self, x, wq, sw):
@@ -409,9 +420,9 @@ class QuantConv2d(Conv2d, _QuantStats):
                                'act_amax_x')):
             sx, vq = self._quant_input(v, stat)
             scale = sx * sw
-            y = q8.int8_conv(vq[:, None], part.permute(2, 3, 1, 0)[None],
-                             stride, padding, dilation, scale=scale,
-                             out_dtype=torch.promote_types(torch.float32,
+            y = q8.int8_conv_packed(
+                vq[:, None], _packed(part), stride, padding, dilation,
+                scale=scale, out_dtype=torch.promote_types(torch.float32,
                                                            scale.dtype))
             if out is None:
                 out = y
@@ -438,9 +449,10 @@ class QuantConv3d(Conv3d, _QuantStats):
             return super().forward(x)
         wq, sw = self._quant_weight(self.weight)
         sx, xq = self._quant_input(x, 'act_amax')
-        out = q8.int8_conv(xq, wq.permute(2, 3, 4, 1, 0), tuple(self.stride),
-                           _pairs(self.padding), tuple(self.dilation),
-                           scale=sx * sw, bias=self.bias, out_dtype=x.dtype)
+        out = q8.int8_conv_packed(xq, _packed(wq), tuple(self.stride),
+                                  _pairs(self.padding), tuple(self.dilation),
+                                  scale=sx * sw, bias=self.bias,
+                                  out_dtype=x.dtype)
         return out.permute(0, 4, 1, 2, 3)
 
 

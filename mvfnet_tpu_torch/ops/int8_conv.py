@@ -32,7 +32,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -43,6 +43,10 @@ from . import _cuda
 MAX_K = (2 ** 31 - 1) // (127 * 127)
 
 _EPILOGUE = {None: 0, torch.float32: 1, torch.bfloat16: 2}
+# the kernel's tile widths (output channels a block), and the multiple of
+# Cin it takes (a 16-byte piece of K lies in one tap)
+TILE_WIDTHS = (64, 128, 256)
+CIN_ALIGN = 16
 
 _SIGNATURES = {
     'int8_conv_launch': (
@@ -152,56 +156,162 @@ def int8_conv_plain(x: torch.Tensor, w: torch.Tensor, stride: Triple,
     return _epilogue_plain(acc, scale, bias, out_dtype)
 
 
-def int8_conv_cuda(x: torch.Tensor, w: torch.Tensor, stride: Triple,
-                   padding: Sequence[Tuple[int, int]], dilation: Triple,
-                   scale: Optional[torch.Tensor] = None,
-                   bias: Optional[torch.Tensor] = None,
-                   out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """Launch the kernel on x's current CUDA stream (no sync). Counts each
-    launch in ``launches`` and, by ``int8_conv_key``, in
-    ``launches_by_shape``."""
+class Plan(NamedTuple):
+    """How the kernel runs one shape: ``variant`` (``'tma'`` where x's
+    im2col matrix is x itself, a 1x1 stride-1 unpadded conv, so that x's
+    tiles come by TMA; ``'gather'`` where they are gathered; either with
+    ``'padded_'`` in front where Cin is zero-padded to ``cin``, a multiple
+    of 16, first), ``cin`` and ``tile_n``, the output channels a block
+    computes (the kernel's BN)."""
+    variant: str
+    cin: int
+    tile_n: int
+
+
+def plan(cin: int, cout: int, kernel: Triple, stride: Triple,
+         padding: Sequence[Tuple[int, int]]) -> Plan:
+    """The kernel's plan for a conv: Cin rounded up to a multiple of 16
+    (16-byte pieces of one tap), and the narrowest tile width that covers
+    Cout, or the widest (256) above it, so that x is read once for Cout <=
+    256."""
+    cin16 = -(-cin // CIN_ALIGN) * CIN_ALIGN
+    plain = (tuple(kernel) == (1, 1, 1) and tuple(stride) == (1, 1, 1)
+             and all(tuple(p) == (0, 0) for p in padding))
+    variant = ('padded_' if cin16 != cin else '') + (
+        'tma' if plain else 'gather')
+    tile_n = next((b for b in TILE_WIDTHS if b >= cout), TILE_WIDTHS[-1])
+    return Plan(variant, cin16, tile_n)
+
+
+def pack_weight(w: torch.Tensor) -> torch.Tensor:
+    """``(kt, kh, kw, Cin, Cout)`` (the JAX layout) as the kernel's
+    ``(Cout, kt, kh, kw, Cin)``, each output channel's K contiguous."""
+    return w.permute(4, 0, 1, 2, 3).contiguous()
+
+
+def unpack_weight(wp: torch.Tensor) -> torch.Tensor:
+    """The kernel's ``(Cout, kt, kh, kw, Cin)`` as a ``(kt, kh, kw, Cin,
+    Cout)`` view."""
+    return wp.permute(1, 2, 3, 4, 0)
+
+
+class Launch(NamedTuple):
+    """One launch's operands in the kernel's layouts, its output and its
+    arguments (``prepare``)."""
+    x: torch.Tensor
+    w: torch.Tensor
+    out: torch.Tensor
+    scale: Optional[torch.Tensor]
+    bias: Optional[torch.Tensor]
+    dims: ctypes.Array
+    epilogue: int
+    plan: Plan
+
+
+def _channel_vector(v, cout, device):
+    return v.to(device=device, dtype=torch.float32).reshape(-1).expand(
+        cout).contiguous()
+
+
+def prepare(x: torch.Tensor, wp: torch.Tensor, stride: Triple,
+            padding: Sequence[Tuple[int, int]], dilation: Triple,
+            scale: Optional[torch.Tensor] = None,
+            bias: Optional[torch.Tensor] = None,
+            out_dtype: Optional[torch.dtype] = None,
+            tile_n: Optional[int] = None) -> Launch:
+    """Check a call with a packed weight ``wp`` ``(Cout, kt, kh, kw,
+    Cin)``, zero-pad Cin where the plan says so, make scale and bias
+    contiguous float32 of length Cout (once), and allocate the output.
+    ``tile_n`` overrides the plan's tile width (to compare widths)."""
     if x.device.type != 'cuda':
         raise ValueError(f'int8_conv_cuda needs a CUDA tensor, got '
                          f'{x.device}')
-    to, ho, wo = _check(x, w, stride, padding, dilation)
-    if w.device != x.device:
+    to, ho, wo = _check(x, unpack_weight(wp), stride, padding, dilation)
+    if wp.device != x.device:
         raise ValueError('int8 conv operands must share x.device')
     epi = out_dtype if scale is not None else None
     if epi not in _EPILOGUE:
         raise TypeError(f'int8 conv epilogue writes float32 or bfloat16, '
                         f'not {out_dtype}')
-    n, cout = x.shape[0], w.shape[-1]
-    xc = x.contiguous()
-    wt = w.permute(4, 0, 1, 2, 3).contiguous()     # (Cout, kt, kh, kw, Cin)
+    n, cin, cout = x.shape[0], x.shape[-1], wp.shape[0]
+    p = plan(cin, cout, wp.shape[1:4], stride, padding)
+    if tile_n is not None:
+        if tile_n not in TILE_WIDTHS:
+            raise ValueError(f'tile_n {tile_n} is not one of {TILE_WIDTHS}')
+        p = p._replace(tile_n=tile_n)
+    if p.cin != cin:
+        x = F.pad(x, (0, p.cin - cin))
+        wp = F.pad(wp, (0, p.cin - cin))
+    xc, wc = x.contiguous(), wp.contiguous()
     sc = bi = None
     if scale is not None:
-        sc = scale.to(device=x.device, dtype=torch.float32).reshape(-1)
-        sc = sc.expand(cout).contiguous()
+        sc = _channel_vector(scale, cout, x.device)
         if bias is not None:
-            bi = bias.to(device=x.device, dtype=torch.float32).reshape(-1)
-            bi = bi.expand(cout).contiguous()
+            bi = _channel_vector(bias, cout, x.device)
     out = torch.empty((n, to, ho, wo, cout), device=x.device,
                       dtype=torch.int32 if epi is None else epi)
-    dims = (ctypes.c_int * 21)(
-        *x.shape, to, ho, wo, cout, *w.shape[:3], *stride,
-        *(p[0] for p in padding), *dilation)
-    lib = library()
-    with torch.cuda.device(x.device):
+    dims = (ctypes.c_int * 23)(
+        *xc.shape, to, ho, wo, cout, *wc.shape[1:4], *stride,
+        *(q[0] for q in padding), *dilation, p.tile_n,
+        int(p.variant.endswith('tma')))
+    return Launch(xc, wc, out, sc, bi, dims, _EPILOGUE[epi], p)
+
+
+def launch(op: Launch, lib=None) -> torch.Tensor:
+    """Launch the prepared call on x's current CUDA stream (no sync), with
+    ``lib`` (another build of the kernel's source) or the committed one;
+    a failed launch raises. Counts nothing."""
+    lib = lib or library()
+    with torch.cuda.device(op.x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.int8_conv_launch(
-            xc.data_ptr(), wt.data_ptr(), out.data_ptr(),
-            sc.data_ptr() if sc is not None else None,
-            bi.data_ptr() if bi is not None else None, dims, _EPILOGUE[epi],
-            stream)
+            op.x.data_ptr(), op.w.data_ptr(), op.out.data_ptr(),
+            op.scale.data_ptr() if op.scale is not None else None,
+            op.bias.data_ptr() if op.bias is not None else None, op.dims,
+            op.epilogue, stream)
     _cuda.check(err, 'int8_conv')
+    return op.out
+
+
+def int8_conv_packed_cuda(x: torch.Tensor, wp: torch.Tensor, stride: Triple,
+                          padding: Sequence[Tuple[int, int]],
+                          dilation: Triple,
+                          scale: Optional[torch.Tensor] = None,
+                          bias: Optional[torch.Tensor] = None,
+                          out_dtype: Optional[torch.dtype] = None
+                          ) -> torch.Tensor:
+    """The kernel on a packed weight: ``prepare``, then ``launch``. Counts
+    each launch in ``int8_conv_cuda.launches``, by ``int8_conv_key`` in
+    ``launches_by_shape`` and by plan variant in ``launches_by_variant``."""
+    op = prepare(x, wp, stride, padding, dilation, scale, bias, out_dtype)
+    out = launch(op)
     int8_conv_cuda.launches += 1
     int8_conv_cuda.launches_by_shape[int8_conv_key(
-        x, w, stride, padding, dilation, epi)] += 1
+        x, unpack_weight(wp), stride, padding, dilation,
+        out_dtype if scale is not None else None)] += 1
+    int8_conv_cuda.launches_by_variant[op.plan.variant] += 1
     return out
+
+
+def int8_conv_cuda(x: torch.Tensor, w: torch.Tensor, stride: Triple,
+                   padding: Sequence[Tuple[int, int]], dilation: Triple,
+                   scale: Optional[torch.Tensor] = None,
+                   bias: Optional[torch.Tensor] = None,
+                   out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Launch the kernel on x's current CUDA stream (no sync), w in the JAX
+    layout. Counts each launch in ``launches``, by ``int8_conv_key`` in
+    ``launches_by_shape`` and by plan variant in ``launches_by_variant``."""
+    if x.device.type != 'cuda':
+        raise ValueError(f'int8_conv_cuda needs a CUDA tensor, got '
+                         f'{x.device}')
+    _check(x, w, stride, padding, dilation)
+    return int8_conv_packed_cuda(x, pack_weight(w), stride, padding,
+                                 dilation, scale, bias, out_dtype)
 
 
 int8_conv_cuda.launches = 0
 int8_conv_cuda.launches_by_shape = collections.Counter()
+int8_conv_cuda.launches_by_variant = collections.Counter()
 
 
 def int8_conv_key(x, w, stride, padding, dilation, epilogue) -> tuple:
@@ -225,3 +335,32 @@ def int8_conv(x: torch.Tensor, w: torch.Tensor, stride: Triple,
                                out_dtype)
     return int8_conv_cuda(x, w, stride, padding, dilation, scale, bias,
                           out_dtype)
+
+
+def int8_conv_packed_plain(x: torch.Tensor, wp: torch.Tensor,
+                           stride: Triple,
+                           padding: Sequence[Tuple[int, int]],
+                           dilation: Triple,
+                           scale: Optional[torch.Tensor] = None,
+                           bias: Optional[torch.Tensor] = None,
+                           out_dtype: Optional[torch.dtype] = None
+                           ) -> torch.Tensor:
+    """``int8_conv_plain`` on a packed weight ``(Cout, kt, kh, kw, Cin)``."""
+    return int8_conv_plain(x, unpack_weight(wp), stride, padding, dilation,
+                           scale, bias, out_dtype)
+
+
+def int8_conv_packed(x: torch.Tensor, wp: torch.Tensor, stride: Triple,
+                     padding: Sequence[Tuple[int, int]], dilation: Triple,
+                     scale: Optional[torch.Tensor] = None,
+                     bias: Optional[torch.Tensor] = None,
+                     out_dtype: Optional[torch.dtype] = None
+                     ) -> torch.Tensor:
+    """``int8_conv`` with the weight in the kernel's layout ``(Cout, kt, kh,
+    kw, Cin)``, as the quantized modules hand it over: the plain version
+    for a CPU or meta tensor, the kernel for a CUDA tensor."""
+    if x.device.type in ('cpu', 'meta'):
+        return int8_conv_packed_plain(x, wp, stride, padding, dilation,
+                                      scale, bias, out_dtype)
+    return int8_conv_packed_cuda(x, wp, stride, padding, dilation, scale,
+                                 bias, out_dtype)

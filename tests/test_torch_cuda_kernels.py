@@ -15,6 +15,8 @@ hence ``--noconftest``):
         tests/test_torch_cuda_kernels.py
 """
 
+import collections
+
 import numpy as np
 import pytest
 import torch
@@ -431,8 +433,14 @@ def test_i3d_on_the_card_matches_fp32_cpu_and_launches_no_kernel(cuda):
 
 # (x (N, T, H, W, Cin), w (kt, kh, kw, Cout), stride, padding before and
 # after each axis, dilation): 1x1s, a strided 3x3, a dilated one, the 7x7
-# stem (Cin 3: the byte gather, K = 147), a ragged Cout and M, X3D's Cin of
-# 54, and the 3-D kinds (temporal, spatial, full, strided pointwise)
+# stem (Cin 3, padded to 16), a ragged Cout and M, X3D's Cin of 54, and
+# the 3-D kinds (temporal, spatial, full, strided pointwise); then one case
+# per tile width and edge of the kernel's plan: Cout 512 (two 256-wide
+# tiles) with M = 390 (not a multiple of 128) on the TMA path, a 3x3 at
+# Cin 64 (K = 576, not a multiple of the 128-byte stage), a 3x3 at Cin 512
+# (K = 4608: 36 stages around the ring), X3D's Cin 24 and 108 (padded to
+# 32 and 112), a 2-D stride-2 1x1, and tile widths 64 and 128 on the TMA
+# path
 INT8_SHAPES = [
     ((2, 1, 16, 16, 64), (1, 1, 1, 256), (1, 1, 1), ((0, 0),) * 3,
      (1, 1, 1)),
@@ -453,6 +461,22 @@ INT8_SHAPES = [
     ((1, 4, 8, 8, 32), (3, 3, 3, 64), (1, 1, 1), ((1, 1),) * 3,
      (1, 1, 1)),
     ((2, 4, 8, 8, 128), (1, 1, 1, 256), (1, 2, 2), ((0, 0),) * 3,
+     (1, 1, 1)),
+    ((3, 1, 10, 13, 64), (1, 1, 1, 512), (1, 1, 1), ((0, 0),) * 3,
+     (1, 1, 1)),
+    ((2, 1, 12, 12, 64), (1, 3, 3, 64), (1, 1, 1),
+     ((0, 0), (1, 1), (1, 1)), (1, 1, 1)),
+    ((1, 1, 6, 6, 512), (1, 3, 3, 128), (1, 1, 1),
+     ((0, 0), (1, 1), (1, 1)), (1, 1, 1)),
+    ((2, 4, 8, 8, 24), (1, 1, 1, 54), (1, 1, 1), ((0, 0),) * 3,
+     (1, 1, 1)),
+    ((1, 2, 9, 9, 108), (1, 1, 1, 48), (1, 1, 1), ((0, 0),) * 3,
+     (1, 1, 1)),
+    ((2, 1, 16, 16, 256), (1, 1, 1, 512), (1, 2, 2), ((0, 0),) * 3,
+     (1, 1, 1)),
+    ((2, 1, 20, 20, 256), (1, 1, 1, 64), (1, 1, 1), ((0, 0),) * 3,
+     (1, 1, 1)),
+    ((2, 1, 20, 20, 64), (1, 1, 1, 128), (1, 1, 1), ((0, 0),) * 3,
      (1, 1, 1)),
 ]
 
@@ -480,6 +504,27 @@ def test_int8_conv_equals_plain(cuda, case):
         want = q8.int8_conv_plain(x, w, stride, padding, dilation, scale, b,
                                   dtype)
         assert got.dtype == dtype and torch.equal(got, want)
+
+
+def test_int8_conv_counts_each_variant(cuda):
+    """One launch of each variant of the kernel's plan moves its counter
+    in ``launches_by_variant``, and only its counter."""
+    cases = {'tma': 0, 'gather': 1, 'padded_gather': 3,
+             'padded_tma': INT8_SHAPES.index(
+                 ((2, 4, 8, 8, 24), (1, 1, 1, 54), (1, 1, 1),
+                  ((0, 0),) * 3, (1, 1, 1)))}
+    for variant, case in cases.items():
+        xs, ws, stride, padding, dilation = INT8_SHAPES[case]
+        assert q8.plan(xs[-1], ws[3], ws[:3], stride, padding).variant == \
+            variant
+        x = torch.ones(xs, dtype=torch.int8, device='cuda')
+        w = torch.ones(ws[:3] + (xs[-1], ws[3]), dtype=torch.int8,
+                       device='cuda')
+        before = collections.Counter(q8.int8_conv_cuda.launches_by_variant)
+        q8.int8_conv(x, w, stride, padding, dilation)
+        torch.cuda.synchronize()
+        after = q8.int8_conv_cuda.launches_by_variant
+        assert after - before == collections.Counter({variant: 1})
 
 
 def test_int8_conv_raises_on_what_it_does_not_take(cuda):
@@ -527,7 +572,8 @@ def test_quantized_r50_on_the_card_launches_int8_and_matches_plain(
         got = model(x, None, return_loss=False)
         torch.cuda.synchronize()
         launched = q8.int8_conv_cuda.launches - before
-        monkeypatch.setattr(q8, 'int8_conv', q8.int8_conv_plain)
+        monkeypatch.setattr(q8, 'int8_conv_packed',
+                            q8.int8_conv_packed_plain)
         want = model(x, None, return_loss=False)
     assert fb.bottleneck_eval_cuda.launches == fused
     # 3 convs a block (4 where a shortcut projects), 7 blocks, MVF's conv1

@@ -6,7 +6,8 @@ per conv type; the MVF block's split conv1; the stem in bf16) takes the
 same float32 input and weights as the JAX module: the int8 activations,
 the int8 weights and the int32 accumulators each conv computes are equal
 (both packages' convs are recorded: ``jax.lax.conv_general_dilated`` and
-``ops.int8_conv.int8_conv``), and the outputs agree within rtol 1e-6.
+``ops.int8_conv.int8_conv_packed``), and the outputs agree within rtol
+1e-6.
 
 Whole models in f64 (rtol 1e-6 / atol 1e-8): the MVFNet-R50 cut to two
 stages (MVF in the first) calibrated under ``int8_static`` with
@@ -91,15 +92,17 @@ class Recorder:
                 jax.debug.callback(record, lhs, rhs, out, ordered=True)
             return out
 
-        real_port = q8.int8_conv
+        real_port = q8.int8_conv_packed
 
-        def port_conv(x, w, stride, padding, dilation, *rest, **kw):
+        def port_conv(x, wp, stride, padding, dilation, *rest, **kw):
+            # the modules hand over (Cout, kt, kh, kw, Cin); record THWIO
+            w = q8.unpack_weight(wp)
             acc = q8.int8_conv_plain(x, w, stride, padding, dilation)
             self.port.append(tuple(a.numpy() for a in (x, w, acc)))
-            return real_port(x, w, stride, padding, dilation, *rest, **kw)
+            return real_port(x, wp, stride, padding, dilation, *rest, **kw)
 
         monkeypatch.setattr(jax.lax, 'conv_general_dilated', jax_conv)
-        monkeypatch.setattr(q8, 'int8_conv', port_conv)
+        monkeypatch.setattr(q8, 'int8_conv_packed', port_conv)
 
     def clear(self):
         self.jax.clear()
