@@ -42,6 +42,7 @@
 // Built by nvcc into a shared library with a plain C interface, loaded by
 // mvfnet_tpu_torch/ops/_cuda.py through ctypes.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -108,6 +109,47 @@ __device__ __forceinline__ int swizzle(int row, int chunk) {
 __device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
          (64ull << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+// Wait for the phase of parity `parity` to complete. A wait that never
+// ends (a lost transfer) traps, which the next synchronize reports, rather
+// than hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  for (uint32_t spins = 0;; ++spins) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (spins > (1u << 26)) __trap();
+  }
+}
+
+// One box of a 2-D tensor map (128 bytes wide, 128-byte swizzle) into
+// shared memory, its bytes counted on barrier `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int col, int row, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(bar)
+      : "memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -262,14 +304,13 @@ __device__ __forceinline__ RowOrigin row_origin(const ConvShape& s,
   return r;
 }
 
-// Thread t gathers 16-byte chunk t % 8 of A rows t / 8 + 32 i (i < 4) and
-// of B rows t / 8 + 32 i (i < BN / 32): a warp reads four whole rows of 128
-// contiguous bytes wherever a row's 128 bytes lie in one tap.
-template <int BN>
-__device__ __forceinline__ void load_stage(
-    const ConvShape& s, const int8_t* __restrict__ x,
-    const int8_t* __restrict__ w, uint32_t a_smem, uint32_t b_smem, int k0,
-    const RowOrigin (&rows)[4], long long n_base) {
+// Thread t gathers 16-byte chunk t % 8 of A rows t / 8 + 32 i (i < 4): a
+// warp reads four whole rows of 128 contiguous bytes wherever a row's 128
+// bytes lie in one tap.
+__device__ __forceinline__ void gather_a(const ConvShape& s,
+                                         const int8_t* __restrict__ x,
+                                         uint32_t a_smem, int k0,
+                                         const RowOrigin (&rows)[4]) {
   const int chunk = threadIdx.x & 7, row0 = threadIdx.x >> 3;
   const int k = k0 + chunk * 16;
   // the chunk's tap: the same for the thread's four rows
@@ -296,14 +337,6 @@ __device__ __forceinline__ void load_stage(
                           s.cin + ci
            : 0;
     cp_async16(a_smem + swizzle(row0 + 32 * i, chunk), x + off, ok ? 16 : 0);
-  }
-#pragma unroll
-  for (int i = 0; i < BN / 32; ++i) {
-    const int row = row0 + 32 * i;
-    const long long c = n_base + row;
-    const bool ok = in_k && c < s.cout;
-    cp_async16(b_smem + swizzle(row, chunk), ok ? w + c * s.k + k : w,
-               ok ? 16 : 0);
   }
 }
 
@@ -334,22 +367,46 @@ __device__ __forceinline__ void store_pair(typename OutType<EPI>::T* dst,
   }
 }
 
+// The staged tile's rows out to device memory, V (16, 8, 4 or 2 bytes) a
+// thread, a row's pieces from neighbouring threads. Cout * sizeof(Out) is
+// a multiple of sizeof(V).
+template <int BN, typename Out, typename V>
+__device__ __forceinline__ void write_tile(const Out* tile, Out* out,
+                                           const ConvShape& s,
+                                           long long m_base,
+                                           long long n_base, int ncols) {
+  constexpr int kLds = BN + kRowPad;
+  constexpr int kVec = sizeof(V) / sizeof(Out), kPieces = BN / kVec;
+  for (int idx = threadIdx.x; idx < kBM * kPieces; idx += kThreads) {
+    const int row = idx / kPieces, col = (idx % kPieces) * kVec;
+    const long long m = m_base + row;
+    if (m < s.m && col < ncols)
+      *reinterpret_cast<V*>(out + m * s.cout + n_base + col) =
+          *reinterpret_cast<const V*>(tile + row * kLds + col);
+  }
+}
+
 // epilogue EPI: 0 int32, 1 float32, 2 bfloat16 (the latter two rescaled).
-// `stages` (2-4) is the ring's depth; block b computes output tile
-// (b / n_tiles, b % n_tiles), so the blocks of one row of tiles, which
-// read the same x, run side by side.
+// `stages` (2-4) is the ring's depth. Each stage's B tile, and its A tile
+// where `a_tma` (x is A itself: a 1x1 stride-1 unpadded conv), arrive by
+// TMA on the stage's barrier; otherwise every thread gathers A with
+// cp.async. Block b computes output tile (b / n_tiles, b % n_tiles), so
+// the blocks of one row of tiles, which read the same x, run side by side.
 template <int BN, int EPI>
 __global__ void __launch_bounds__(kThreads, 1)
-    int8_conv_kernel(ConvShape s, const int8_t* __restrict__ x,
-                     const int8_t* __restrict__ w, void* __restrict__ out,
+    int8_conv_kernel(const __grid_constant__ CUtensorMap map_a,
+                     const __grid_constant__ CUtensorMap map_b, ConvShape s,
+                     const int8_t* __restrict__ x, void* __restrict__ out,
                      const float* __restrict__ scale,
                      const float* __restrict__ bias, int stages,
-                     int n_tiles) {
+                     int n_tiles, int a_tma) {
   using Out = typename OutType<EPI>::T;
   constexpr int kA = kBM * kBK, kStage = kA + BN * kBK;
   extern __shared__ uint8_t smem_raw[];
+  // the stages' barriers, then (1024-byte aligned) the ring
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t bars = smem_addr(smem), ring = bars + 1024;
   const int tid = threadIdx.x, wg = tid >> 7;
   const long long m_base = static_cast<long long>(blockIdx.x / n_tiles) * kBM;
   const long long n_base = static_cast<long long>(blockIdx.x % n_tiles) * BN;
@@ -358,31 +415,48 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
   for (int i = 0; i < 4; ++i)
     rows[i] = row_origin(s, m_base + (tid >> 3) + 32 * i);
+  if (tid == 0) {
+    for (int i = 0; i < stages; ++i) mbar_init(bars + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
   int acc[BN / 2];
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
 
-  const uint32_t ring = smem_addr(smem);
-  const int nk = (s.k + kBK - 1) / kBK;
-  for (int st = 0; st < stages - 1; ++st) {
-    if (st < nk)
-      load_stage<BN>(s, x, w, ring + st * kStage, ring + st * kStage + kA,
-                     st * kBK, rows, n_base);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait(stages - 2);   // stage kt has landed, for this thread
-    fence_proxy_async();
-    __syncthreads();             // for every thread; slot kt - 1 is free
-    const int next = kt + stages - 1;
-    if (next < nk) {
-      const uint32_t slot = ring + (next % stages) * kStage;
-      load_stage<BN>(s, x, w, slot, slot + kA, next * kBK, rows, n_base);
+  const uint32_t tx = BN * kBK + (a_tma ? kA : 0);
+  const CUtensorMap* const maps[2] = {&map_a, &map_b};
+  // stage st into slot st % stages: thread 0 starts its TMA copies, every
+  // thread its share of the gather (one cp.async group, empty past K)
+  auto produce = [&](int st, int nk) {
+    const int slot = st % stages;
+    const uint32_t a = ring + slot * kStage, bar = bars + 8 * slot;
+    if (st < nk) {
+      if (tid == 0) {
+        mbar_expect_tx(bar, tx);
+        tma_load(a + kA, maps[1], st * kBK, static_cast<int>(n_base), bar);
+        if (a_tma) tma_load(a, maps[0], st * kBK, static_cast<int>(m_base),
+                            bar);
+      }
+      if (!a_tma) gather_a(s, x, a, st * kBK, rows);
     }
-    cp_async_commit();
-    const uint32_t a = ring + (kt % stages) * kStage + wg * 64 * kBK;
-    const uint32_t b = ring + (kt % stages) * kStage + kA;
+    if (!a_tma) cp_async_commit();
+  };
+
+  const int nk = (s.k + kBK - 1) / kBK;
+  for (int st = 0; st < stages - 1; ++st) produce(st, nk);
+  for (int kt = 0; kt < nk; ++kt) {
+    const int slot = kt % stages;
+    mbar_wait(bars + 8 * slot, (kt / stages) & 1);
+    if (!a_tma) {
+      cp_async_wait(stages - 2);   // this thread's share of stage kt
+      fence_proxy_async();
+    }
+    __syncthreads();               // every share; slot kt - 1 is free
+    produce(kt + stages - 1, nk);
+    const uint32_t a = ring + slot * kStage + wg * 64 * kBK;
+    const uint32_t b = ring + slot * kStage + kA;
     wgmma_fence();
 #pragma unroll
     for (int ks = 0; ks < kBK / 32; ++ks)
@@ -390,11 +464,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     wgmma_commit();
     wgmma_wait0();
   }
-  cp_async_wait(0);
-  __syncthreads();               // the ring is free: stage the tile there
+  if (!a_tma) cp_async_wait(0);
+  __syncthreads();                 // the ring is free: stage the tile there
 
   constexpr int kLds = BN + kRowPad;
-  Out* tile = reinterpret_cast<Out*>(smem);
+  Out* tile = reinterpret_cast<Out*>(smem + 1024);
   const int warp = (tid & 127) >> 5, lane = tid & 31;
   const int r0 = wg * 64 + warp * 16 + (lane >> 2);
 #pragma unroll
@@ -420,58 +494,105 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   __syncthreads();
 
-  // 16 bytes a thread, a row's chunks from neighbouring threads
-  constexpr int kVec = 16 / sizeof(Out), kChunks = BN / kVec;
+  // the widest piece that divides a row of the output
   const long long left = s.cout - n_base;
   const int ncols = left < BN ? static_cast<int>(left) : BN;
-  const bool vec = s.cout % kVec == 0;
+  const int row_bytes = s.cout * static_cast<int>(sizeof(Out));
   Out* o = static_cast<Out*>(out);
-  for (int idx = tid; idx < kBM * kChunks; idx += kThreads) {
-    const int row = idx / kChunks, col = (idx % kChunks) * kVec;
-    const long long m = m_base + row;
-    if (m >= s.m || col >= ncols) continue;
-    Out* dst = o + m * s.cout + n_base + col;
-    const Out* src = tile + row * kLds + col;
-    if (vec) {
-      *reinterpret_cast<int4*>(dst) = *reinterpret_cast<const int4*>(src);
-    } else {
-      for (int e = 0; e < kVec && col + e < ncols; ++e) dst[e] = src[e];
-    }
+  if (row_bytes % 16 == 0) {
+    write_tile<BN, Out, int4>(tile, o, s, m_base, n_base, ncols);
+  } else if (row_bytes % 8 == 0) {
+    write_tile<BN, Out, int2>(tile, o, s, m_base, n_base, ncols);
+  } else if (row_bytes % 4 == 0) {
+    write_tile<BN, Out, int>(tile, o, s, m_base, n_base, ncols);
+  } else if constexpr (sizeof(Out) == 2) {
+    write_tile<BN, Out, unsigned short>(tile, o, s, m_base, n_base, ncols);
   }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled, through the runtime (no -lcuda).
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                     cudaEnableDefault, &q);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                            &q);
+#endif
+    return q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p)
+                                            : nullptr;
+  }();
+  return fn;
+}
+
+// A row-major int8 matrix (rows x cols, rows `ld` bytes apart) in boxes of
+// box_rows x 128 bytes, 128-byte swizzled; zeros past its edges.
+bool tensor_map(CUtensorMap* map, const void* base, long long rows,
+                int cols, long long ld, int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(kBK),
+                             static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
+                const_cast<void*>(base), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int BN, int EPI>
 int launch(const ConvShape& s, const int8_t* x, const int8_t* w, void* out,
-           const float* scale, const float* bias, cudaStream_t stream) {
+           const float* scale, const float* bias, int a_tma,
+           cudaStream_t stream) {
   using Out = typename OutType<EPI>::T;
   constexpr size_t kStage = static_cast<size_t>(kBM + BN) * kBK;
   const int nk = (s.k + kBK - 1) / kBK;
   const int stages = nk < 2 ? 2 : (nk > kMaxStages ? kMaxStages : nk);
   const size_t ring = (nk < stages ? nk : stages) * kStage;
   const size_t staged = static_cast<size_t>(kBM) * (BN + kRowPad) * sizeof(Out);
-  const size_t bytes = (ring > staged ? ring : staged) + 1024;  // alignment
+  // alignment, the barriers, then the ring or the staged tile
+  const size_t bytes = 2048 + (ring > staged ? ring : staged);
   auto kernel = int8_conv_kernel<BN, EPI>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kMaxStages * kStage + 1024));
+      static_cast<int>(2048 + kMaxStages * kStage));
   if (err != cudaSuccess) return static_cast<int>(err);
+  alignas(64) CUtensorMap map_a{}, map_b{};
+  if (!tensor_map(&map_b, w, s.cout, s.k, s.k, BN) ||
+      (a_tma && !tensor_map(&map_a, x, s.m, s.cin, s.cin, kBM)))
+    return static_cast<int>(cudaErrorInvalidValue);
   const long long m_tiles = (s.m + kBM - 1) / kBM;
   const int n_tiles = (s.cout + BN - 1) / BN;
   if (m_tiles * n_tiles > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidConfiguration);
   kernel<<<static_cast<unsigned>(m_tiles * n_tiles), kThreads, bytes,
-           stream>>>(s, x, w, out, scale, bias, stages, n_tiles);
+           stream>>>(map_a, map_b, s, x, out, scale, bias, stages, n_tiles,
+                     a_tma);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int BN>
 int launch_bn(const ConvShape& s, const int8_t* x, const int8_t* w,
               void* out, const float* scale, const float* bias,
-              int epilogue, cudaStream_t stream) {
+              int epilogue, int a_tma, cudaStream_t stream) {
   switch (epilogue) {
-    case 0: return launch<BN, 0>(s, x, w, out, scale, bias, stream);
-    case 1: return launch<BN, 1>(s, x, w, out, scale, bias, stream);
-    case 2: return launch<BN, 2>(s, x, w, out, scale, bias, stream);
+    case 0: return launch<BN, 0>(s, x, w, out, scale, bias, a_tma, stream);
+    case 1: return launch<BN, 1>(s, x, w, out, scale, bias, a_tma, stream);
+    case 2: return launch<BN, 2>(s, x, w, out, scale, bias, a_tma, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -480,14 +601,15 @@ int launch_bn(const ConvShape& s, const int8_t* x, const int8_t* w,
 
 extern "C" {
 
-// The interface's version: 2 takes the tile width in dims[21] and Cin a
-// multiple of 16 (the first kernel took 21 dims and any Cin).
+// The interface's version: 2 takes the tile width and the A path in
+// dims[21..22] and Cin a multiple of 16 (the first kernel took 21 dims and
+// any Cin).
 int int8_conv_abi(void) { return 2; }
 
 // dims: n t h w cin, to ho wo cout, kt kh kw, st sh sw, pt ph pw, dt dh dw,
-// then the tile width BN (64, 128 or 256) (22 ints). Cin must be a
-// multiple of 16 and x and w 16-byte aligned. Returns the launch's
-// cudaError_t.
+// then the tile width BN (64, 128 or 256) and whether x's tiles come by TMA
+// (a 1x1 stride-1 conv without padding) (23 ints). Cin must be a multiple
+// of 16 and x and w 16-byte aligned. Returns the launch's cudaError_t.
 int int8_conv_launch(const void* x, const void* w, void* out,
                      const void* scale, const void* bias, const int* dims,
                      int epilogue, void* stream) {
@@ -501,8 +623,11 @@ int int8_conv_launch(const void* x, const void* w, void* out,
   s.dt = dims[18]; s.dh = dims[19]; s.dw = dims[20];
   s.m = static_cast<long long>(s.n) * s.to * s.ho * s.wo;
   s.k = s.kt * s.kh * s.kw * s.cin;
+  const int a_tma = dims[22];
+  const bool plain = s.kt * s.kh * s.kw == 1 && s.st * s.sh * s.sw == 1 &&
+                     s.pt + s.ph + s.pw == 0;
   if (s.cin % 16 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(w) % 16 != 0)
+      reinterpret_cast<uintptr_t>(w) % 16 != 0 || (a_tma && !plain))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto* xi = static_cast<const int8_t*>(x);
   const auto* wi = static_cast<const int8_t*>(w);
@@ -510,9 +635,12 @@ int int8_conv_launch(const void* x, const void* w, void* out,
   const auto* bi = static_cast<const float*>(bias);
   const auto st = static_cast<cudaStream_t>(stream);
   switch (dims[21]) {
-    case 64: return launch_bn<64>(s, xi, wi, out, sc, bi, epilogue, st);
-    case 128: return launch_bn<128>(s, xi, wi, out, sc, bi, epilogue, st);
-    case 256: return launch_bn<256>(s, xi, wi, out, sc, bi, epilogue, st);
+    case 64:
+      return launch_bn<64>(s, xi, wi, out, sc, bi, epilogue, a_tma, st);
+    case 128:
+      return launch_bn<128>(s, xi, wi, out, sc, bi, epilogue, a_tma, st);
+    case 256:
+      return launch_bn<256>(s, xi, wi, out, sc, bi, epilogue, a_tma, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
