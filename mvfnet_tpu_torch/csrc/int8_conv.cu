@@ -49,11 +49,33 @@
 
 namespace {
 
-constexpr int kBM = 128;          // output pixels a block: two warpgroups
+constexpr int kBM = 128;          // output pixels a tile: 64 a warpgroup
 constexpr int kBK = 128;          // K bytes a stage: one swizzle row
-constexpr int kThreads = 256;
-constexpr int kMaxStages = 4;
-constexpr int kRowPad = 8;        // staged output row: BN + 8 elements
+constexpr int kRowPad = 8;        // staged output row: columns + 8
+constexpr int kSmem = 232448;     // a block's shared memory on sm_90
+
+// The gathering kernel: two warpgroups that gather and multiply.
+constexpr int kGatherThreads = 256;
+constexpr int kGatherStages = 4;  // at most
+
+// The TMA kernel: two consumer warpgroups, then one producer warp.
+constexpr int kConsumers = 2;
+constexpr int kTmaThreads = 128 * kConsumers + 32;
+
+// The TMA kernel's ring: stages of A (128 x 128 bytes) and B (BN x 128),
+// as many as fit (up to 8) beside the barriers and the consumers' staging
+// buffers of kCols columns: 7-8 stages at BN 64, 4-5 at 128, 3 at 256.
+template <int BN, typename Out>
+struct Ring {
+  static constexpr int kA = kBM * kBK;
+  static constexpr int kStage = kA + BN * kBK;
+  static constexpr int kCols = BN < 128 ? BN : 128;   // staged at a time
+  static constexpr int kStaged =
+      kConsumers * 64 * (kCols + kRowPad) * static_cast<int>(sizeof(Out));
+  static constexpr int kFit = (kSmem - 2048 - kStaged) / kStage;
+  static constexpr int kStages = kFit < 8 ? kFit : 8;
+  static constexpr int kBytes = 2048 + kStages * kStage + kStaged;
+};
 
 struct ConvShape {
   int n, t, h, w, cin;            // input
@@ -80,7 +102,7 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
-// wait until at most `pending` of this thread's groups are in flight
+// wait until at most `pending` (0-2) of this thread's groups are in flight
 __device__ __forceinline__ void cp_async_wait(int pending) {
   if (pending >= 2)
     asm volatile("cp.async.wait_group 2;\n" ::: "memory");
@@ -123,11 +145,12 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
       : "memory");
 }
 
-// Wait for the phase of parity `parity` to complete. A wait that never
-// ends (a lost transfer) traps, which the next synchronize reports, rather
-// than hanging the card.
+// Wait for the phase of parity `parity` to complete. A wait longer than
+// four seconds (a lost transfer, a broken ring) traps, which the next
+// synchronize reports, rather than hanging the card.
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  for (uint32_t spins = 0;; ++spins) {
+  unsigned long long since = 0;
+  for (uint32_t spins = 1;; ++spins) {
     uint32_t done;
     asm volatile(
         "{\n.reg .pred p;\n"
@@ -137,7 +160,14 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "r"(bar), "r"(parity)
         : "memory");
     if (done) return;
-    if (spins > (1u << 26)) __trap();
+    if (spins % 1024 == 0) {
+      unsigned long long now;
+      asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(now));
+      if (since == 0)
+        since = now;
+      else if (now - since > 4000000000ull)
+        __trap();
+    }
   }
 }
 
@@ -152,6 +182,16 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// The 128 threads of one warpgroup (barrier 1 + its index).
+__device__ __forceinline__ void warpgroup_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -162,6 +202,10 @@ __device__ __forceinline__ void wgmma_commit() {
 
 __device__ __forceinline__ void wgmma_wait0() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
 }
 
 // d[BN / 2] += A (64 x 32, descriptor a) * B (BN x 32, descriptor b)^T;
@@ -287,30 +331,33 @@ struct RowOrigin {
 };
 
 __device__ __forceinline__ RowOrigin row_origin(const ConvShape& s,
-                                                long long m) {
+                                                long long m64) {
   RowOrigin r;
-  r.valid = m < s.m;
-  if (!r.valid) m = 0;
-  const int wo = static_cast<int>(m % s.wo);
-  long long q = m / s.wo;
-  const int ho = static_cast<int>(q % s.ho);
+  r.valid = m64 < s.m;
+  const int m = r.valid ? static_cast<int>(m64) : 0;   // M < 2^31
+  const int wo = m % s.wo;
+  int q = m / s.wo;
+  const int ho = q % s.ho;
   q /= s.ho;
-  const int to = static_cast<int>(q % s.to);
-  const long long n = q / s.to;
-  r.base = n * s.t * s.h * static_cast<long long>(s.w) * s.cin;
+  const int to = q % s.to;
+  const int n = q / s.to;
+  r.base = static_cast<long long>(n) * s.t * s.h * s.w * s.cin;
   r.t0 = to * s.st - s.pt;
   r.h0 = ho * s.sh - s.ph;
   r.w0 = wo * s.sw - s.pw;
   return r;
 }
 
-// Thread t gathers 16-byte chunk t % 8 of A rows t / 8 + 32 i (i < 4): a
-// warp reads four whole rows of 128 contiguous bytes wherever a row's 128
-// bytes lie in one tap.
-__device__ __forceinline__ void gather_a(const ConvShape& s,
-                                         const int8_t* __restrict__ x,
-                                         uint32_t a_smem, int k0,
-                                         const RowOrigin (&rows)[4]) {
+// One stage of the gathering kernel: thread t copies 16-byte chunk t % 8
+// of A rows t / 8 + 32 i (i < 4), x's im2col rows, and of B rows t / 8 +
+// 32 i (i < BN / 32), to their swizzled addresses, zero-filled outside
+// the image and past K: a warp reads four whole rows of 128 contiguous
+// bytes wherever a row's 128 bytes lie in one tap.
+template <int BN>
+__device__ __forceinline__ void gather_stage(
+    const ConvShape& s, const int8_t* __restrict__ x,
+    const int8_t* __restrict__ w, uint32_t a_smem, uint32_t b_smem, int k0,
+    const RowOrigin (&rows)[4], long long n_base) {
   const int chunk = threadIdx.x & 7, row0 = threadIdx.x >> 3;
   const int k = k0 + chunk * 16;
   // the chunk's tap: the same for the thread's four rows
@@ -337,6 +384,14 @@ __device__ __forceinline__ void gather_a(const ConvShape& s,
                           s.cin + ci
            : 0;
     cp_async16(a_smem + swizzle(row0 + 32 * i, chunk), x + off, ok ? 16 : 0);
+  }
+#pragma unroll
+  for (int i = 0; i < BN / 32; ++i) {
+    const int row = row0 + 32 * i;
+    const long long c = n_base + row;
+    const bool ok = in_k && c < s.cout;
+    cp_async16(b_smem + swizzle(row, chunk), ok ? w + c * s.k + k : w,
+               ok ? 16 : 0);
   }
 }
 
@@ -367,114 +422,21 @@ __device__ __forceinline__ void store_pair(typename OutType<EPI>::T* dst,
   }
 }
 
-// The staged tile's rows out to device memory, V (16, 8, 4 or 2 bytes) a
-// thread, a row's pieces from neighbouring threads. Cout * sizeof(Out) is
-// a multiple of sizeof(V).
-template <int BN, typename Out, typename V>
-__device__ __forceinline__ void write_tile(const Out* tile, Out* out,
-                                           const ConvShape& s,
-                                           long long m_base,
-                                           long long n_base, int ncols) {
-  constexpr int kLds = BN + kRowPad;
-  constexpr int kVec = sizeof(V) / sizeof(Out), kPieces = BN / kVec;
-  for (int idx = threadIdx.x; idx < kBM * kPieces; idx += kThreads) {
-    const int row = idx / kPieces, col = (idx % kPieces) * kVec;
-    const long long m = m_base + row;
-    if (m < s.m && col < ncols)
-      *reinterpret_cast<V*>(out + m * s.cout + n_base + col) =
-          *reinterpret_cast<const V*>(tile + row * kLds + col);
-  }
-}
-
-// epilogue EPI: 0 int32, 1 float32, 2 bfloat16 (the latter two rescaled).
-// `stages` (2-4) is the ring's depth. Each stage's B tile, and its A tile
-// where `a_tma` (x is A itself: a 1x1 stride-1 unpadded conv), arrive by
-// TMA on the stage's barrier; otherwise every thread gathers A with
-// cp.async. Block b computes output tile (b / n_tiles, b % n_tiles), so
-// the blocks of one row of tiles, which read the same x, run side by side.
-template <int BN, int EPI>
-__global__ void __launch_bounds__(kThreads, 1)
-    int8_conv_kernel(const __grid_constant__ CUtensorMap map_a,
-                     const __grid_constant__ CUtensorMap map_b, ConvShape s,
-                     const int8_t* __restrict__ x, void* __restrict__ out,
-                     const float* __restrict__ scale,
-                     const float* __restrict__ bias, int stages,
-                     int n_tiles, int a_tma) {
-  using Out = typename OutType<EPI>::T;
-  constexpr int kA = kBM * kBK, kStage = kA + BN * kBK;
-  extern __shared__ uint8_t smem_raw[];
-  // the stages' barriers, then (1024-byte aligned) the ring
-  uint8_t* smem = reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  const uint32_t bars = smem_addr(smem), ring = bars + 1024;
-  const int tid = threadIdx.x, wg = tid >> 7;
-  const long long m_base = static_cast<long long>(blockIdx.x / n_tiles) * kBM;
-  const long long n_base = static_cast<long long>(blockIdx.x % n_tiles) * BN;
-
-  RowOrigin rows[4];
+// A warpgroup's fragment of columns [8 j0, 8 j0 + kCols) of its 64 x BN
+// products, rescaled, into `staged` (rows kCols + kRowPad apart): thread t
+// holds rows 16 (t / 32) + (t % 32) / 4 (+ 8), columns 8 j + 2 (t % 4)
+// (+ 1) in acc[4 j .. 4 j + 3].
+template <int EPI, int BN, int kCols>
+__device__ __forceinline__ void stage_fragment(
+    typename OutType<EPI>::T* staged, const int (&acc)[BN / 2], int j0,
+    long long c0, const ConvShape& s, const float* __restrict__ scale,
+    const float* __restrict__ bias) {
+  const int t = threadIdx.x & 127, lane = t & 31;
+  const int r0 = (t >> 5) * 16 + (lane >> 2);
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-    rows[i] = row_origin(s, m_base + (tid >> 3) + 32 * i);
-  if (tid == 0) {
-    for (int i = 0; i < stages; ++i) mbar_init(bars + 8 * i, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-
-  int acc[BN / 2];
-#pragma unroll
-  for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
-
-  const uint32_t tx = BN * kBK + (a_tma ? kA : 0);
-  const CUtensorMap* const maps[2] = {&map_a, &map_b};
-  // stage st into slot st % stages: thread 0 starts its TMA copies, every
-  // thread its share of the gather (one cp.async group, empty past K)
-  auto produce = [&](int st, int nk) {
-    const int slot = st % stages;
-    const uint32_t a = ring + slot * kStage, bar = bars + 8 * slot;
-    if (st < nk) {
-      if (tid == 0) {
-        mbar_expect_tx(bar, tx);
-        tma_load(a + kA, maps[1], st * kBK, static_cast<int>(n_base), bar);
-        if (a_tma) tma_load(a, maps[0], st * kBK, static_cast<int>(m_base),
-                            bar);
-      }
-      if (!a_tma) gather_a(s, x, a, st * kBK, rows);
-    }
-    if (!a_tma) cp_async_commit();
-  };
-
-  const int nk = (s.k + kBK - 1) / kBK;
-  for (int st = 0; st < stages - 1; ++st) produce(st, nk);
-  for (int kt = 0; kt < nk; ++kt) {
-    const int slot = kt % stages;
-    mbar_wait(bars + 8 * slot, (kt / stages) & 1);
-    if (!a_tma) {
-      cp_async_wait(stages - 2);   // this thread's share of stage kt
-      fence_proxy_async();
-    }
-    __syncthreads();               // every share; slot kt - 1 is free
-    produce(kt + stages - 1, nk);
-    const uint32_t a = ring + slot * kStage + wg * 64 * kBK;
-    const uint32_t b = ring + slot * kStage + kA;
-    wgmma_fence();
-#pragma unroll
-    for (int ks = 0; ks < kBK / 32; ++ks)
-      wgmma_s8<BN>(acc, smem_desc(a + ks * 32), smem_desc(b + ks * 32));
-    wgmma_commit();
-    wgmma_wait0();
-  }
-  if (!a_tma) cp_async_wait(0);
-  __syncthreads();                 // the ring is free: stage the tile there
-
-  constexpr int kLds = BN + kRowPad;
-  Out* tile = reinterpret_cast<Out*>(smem + 1024);
-  const int warp = (tid & 127) >> 5, lane = tid & 31;
-  const int r0 = wg * 64 + warp * 16 + (lane >> 2);
-#pragma unroll
-  for (int j = 0; j < BN / 8; ++j) {
-    const int col = j * 8 + (lane & 3) * 2;
-    const long long c = n_base + col;
+  for (int jj = 0; jj < kCols / 8; ++jj) {
+    const int col = jj * 8 + (lane & 3) * 2;
+    const long long c = c0 + col;
     float s0 = 0.f, s1 = 0.f, b0 = 0.f, b1 = 0.f;
     if (EPI != 0) {
       if (c < s.cout) {
@@ -488,25 +450,221 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
 #pragma unroll
     for (int half = 0; half < 2; ++half)
-      store_pair<EPI>(tile + (r0 + 8 * half) * kLds + col,
-                      acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1], s0,
-                      s1, b0, b1, bias != nullptr);
+      store_pair<EPI>(staged + (r0 + 8 * half) * (kCols + kRowPad) + col,
+                      acc[4 * (j0 + jj) + 2 * half],
+                      acc[4 * (j0 + jj) + 2 * half + 1], s0, s1, b0, b1,
+                      bias != nullptr);
+  }
+}
+
+// Staged rows (kCols columns, kCols + kRowPad apart) out to device memory
+// from `threads` threads (t among them), V (16, 8, 4 or 2 bytes) a
+// thread, a row's pieces from neighbouring threads; Cout * sizeof(Out) is
+// a multiple of sizeof(V).
+template <int kCols, typename Out, typename V>
+__device__ __forceinline__ void write_rows(const Out* staged, Out* out,
+                                           const ConvShape& s,
+                                           long long m_base, long long c0,
+                                           int rows, int ncols, int t,
+                                           int threads) {
+  constexpr int kVec = sizeof(V) / sizeof(Out), kPieces = kCols / kVec;
+  for (int idx = t; idx < rows * kPieces; idx += threads) {
+    const int row = idx / kPieces, col = (idx % kPieces) * kVec;
+    const long long m = m_base + row;
+    if (m < s.m && col < ncols)
+      *reinterpret_cast<V*>(out + m * s.cout + c0 + col) =
+          *reinterpret_cast<const V*>(staged + row * (kCols + kRowPad) + col);
+  }
+}
+
+// write_rows with the widest piece that divides a row of the output.
+template <int kCols, typename Out>
+__device__ __forceinline__ void write_out(const Out* staged, Out* out,
+                                          const ConvShape& s,
+                                          long long m_base, long long c0,
+                                          int rows, int t, int threads) {
+  const long long left = s.cout - c0;
+  const int ncols = left < kCols ? static_cast<int>(left) : kCols;
+  const int row_bytes = s.cout * static_cast<int>(sizeof(Out));
+  if (row_bytes % 16 == 0) {
+    write_rows<kCols, Out, int4>(staged, out, s, m_base, c0, rows, ncols, t,
+                                 threads);
+  } else if (row_bytes % 8 == 0) {
+    write_rows<kCols, Out, int2>(staged, out, s, m_base, c0, rows, ncols, t,
+                                 threads);
+  } else if (row_bytes % 4 == 0) {
+    write_rows<kCols, Out, int>(staged, out, s, m_base, c0, rows, ncols, t,
+                                threads);
+  } else if constexpr (sizeof(Out) == 2) {
+    write_rows<kCols, Out, unsigned short>(staged, out, s, m_base, c0, rows,
+                                           ncols, t, threads);
+  }
+}
+
+// epilogue EPI: 0 int32, 1 float32, 2 bfloat16 (the latter two rescaled).
+//
+// The gathering kernel, for every conv whose im2col matrix is not x
+// itself: block b computes output tile (b / n_tiles, b % n_tiles), so the
+// blocks of one row of tiles, which read the same x, run side by side.
+// All 256 threads gather each stage of A and B into a ring of `stages`
+// (2-4) slots with cp.async, kept stages - 1 ahead; both warpgroups then
+// run four k32 wgmma on it, 64 rows each. The epilogue stages the whole
+// tile in the ring's memory and writes it out row by row.
+template <int BN, int EPI>
+__global__ void __launch_bounds__(kGatherThreads, 1)
+    int8_conv_gather(ConvShape s, const int8_t* __restrict__ x,
+                     const int8_t* __restrict__ w, void* __restrict__ out,
+                     const float* __restrict__ scale,
+                     const float* __restrict__ bias, int stages,
+                     int n_tiles) {
+  using Out = typename OutType<EPI>::T;
+  constexpr int kA = kBM * kBK, kStage = kA + BN * kBK;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const long long m_base = static_cast<long long>(blockIdx.x / n_tiles) * kBM;
+  const long long n_base = static_cast<long long>(blockIdx.x % n_tiles) * BN;
+
+  RowOrigin rows[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    rows[i] = row_origin(s, m_base + (tid >> 3) + 32 * i);
+
+  int acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
+
+  const uint32_t ring = smem_addr(smem);
+  const int nk = (s.k + kBK - 1) / kBK;
+  for (int st = 0; st < stages - 1; ++st) {
+    if (st < nk)
+      gather_stage<BN>(s, x, w, ring + st * kStage, ring + st * kStage + kA,
+                       st * kBK, rows, n_base);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait(stages - 2);   // stage kt has landed, for this thread
+    fence_proxy_async();         // cp.async wrote, wgmma reads
+    __syncthreads();             // for every thread; slot kt - 1 is free
+    const int next = kt + stages - 1;
+    if (next < nk) {
+      const uint32_t slot = ring + (next % stages) * kStage;
+      gather_stage<BN>(s, x, w, slot, slot + kA, next * kBK, rows, n_base);
+    }
+    cp_async_commit();
+    const uint32_t a = ring + (kt % stages) * kStage + wg * 64 * kBK;
+    const uint32_t b = ring + (kt % stages) * kStage + kA;
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kBK / 32; ++ks)
+      wgmma_s8<BN>(acc, smem_desc(a + ks * 32), smem_desc(b + ks * 32));
+    wgmma_commit();
+    wgmma_wait0();
+  }
+  cp_async_wait(0);
+  __syncthreads();               // the ring is free: stage the tile there
+
+  Out* tile = reinterpret_cast<Out*>(smem);
+  stage_fragment<EPI, BN, BN>(tile + wg * 64 * (BN + kRowPad), acc, 0,
+                              n_base, s, scale, bias);
+  __syncthreads();
+  write_out<BN>(tile, static_cast<Out*>(out), s, m_base, n_base, kBM, tid,
+                kGatherThreads);
+}
+
+// The TMA kernel, for a 1x1 stride-1 unpadded conv, whose im2col matrix
+// is x itself. A persistent block walks output tiles b, b + gridDim.x,
+// ...; tile i is (i / n_tiles, i % n_tiles), so the blocks that run side
+// by side share x's rows. One thread of the producer warp fills the ring:
+// for each stage it waits for the slot's release, then starts the TMA
+// copies of A's and B's tiles on the slot's full barrier, running ahead
+// of the consumers across tiles. Each consumer warpgroup waits for a
+// stage, runs four k32 wgmma on its 64 rows, keeps one stage of products
+// in flight and releases the stage before; after a tile's last stage it
+// stages its rows in its own buffer, kCols columns at a time, and writes
+// them out while the producer already fills the ring for the next tile.
+template <int BN, int EPI>
+__global__ void __launch_bounds__(kTmaThreads, 1)
+    int8_conv_tma(const __grid_constant__ CUtensorMap map_a,
+                  const __grid_constant__ CUtensorMap map_b, ConvShape s,
+                  void* __restrict__ out, const float* __restrict__ scale,
+                  const float* __restrict__ bias, int n_tiles,
+                  long long tiles) {
+  using Out = typename OutType<EPI>::T;
+  using R = Ring<BN, Out>;
+  constexpr int kCols = R::kCols;
+  extern __shared__ uint8_t smem_raw[];
+  // the barriers, then (1024-byte aligned) the ring, then the staging
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t full = smem_addr(smem), empty = full + 8 * R::kStages;
+  const uint32_t ring = full + 1024;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int nk = (s.k + kBK - 1) / kBK;
+  if (tid == 0) {
+    for (int i = 0; i < R::kStages; ++i) {
+      mbar_init(full + 8 * i, 1);                 // the producer's expect_tx
+      mbar_init(empty + 8 * i, 4 * kConsumers);   // each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  // the widest piece that divides a row of the output
-  const long long left = s.cout - n_base;
-  const int ncols = left < BN ? static_cast<int>(left) : BN;
-  const int row_bytes = s.cout * static_cast<int>(sizeof(Out));
-  Out* o = static_cast<Out*>(out);
-  if (row_bytes % 16 == 0) {
-    write_tile<BN, Out, int4>(tile, o, s, m_base, n_base, ncols);
-  } else if (row_bytes % 8 == 0) {
-    write_tile<BN, Out, int2>(tile, o, s, m_base, n_base, ncols);
-  } else if (row_bytes % 4 == 0) {
-    write_tile<BN, Out, int>(tile, o, s, m_base, n_base, ncols);
-  } else if constexpr (sizeof(Out) == 2) {
-    write_tile<BN, Out, unsigned short>(tile, o, s, m_base, n_base, ncols);
+  if (wg == kConsumers) {
+    if (tid != 128 * kConsumers) return;   // one thread issues
+    int st = 0;
+    for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int m_base = static_cast<int>(tile / n_tiles) * kBM;
+      const int n_base = static_cast<int>(tile % n_tiles) * BN;
+      for (int kt = 0; kt < nk; ++kt, ++st) {
+        const int slot = st % R::kStages;
+        const uint32_t a = ring + slot * R::kStage, bar = full + 8 * slot;
+        mbar_wait(empty + 8 * slot, ((st / R::kStages) & 1) ^ 1);
+        mbar_expect_tx(bar, R::kStage);
+        tma_load(a + R::kA, &map_b, kt * kBK, n_base, bar);
+        tma_load(a, &map_a, kt * kBK, m_base, bar);
+      }
+    }
+    return;
+  }
+
+  const int lane = tid & 31;
+  Out* staged = reinterpret_cast<Out*>(smem + 1024 + R::kStages * R::kStage) +
+                wg * 64 * (kCols + kRowPad);
+  int st = 0;
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const long long m_base = tile / n_tiles * kBM + wg * 64;
+    const long long n_base = tile % n_tiles * BN;
+    int acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
+    for (int kt = 0; kt < nk; ++kt, ++st) {
+      const int slot = st % R::kStages;
+      mbar_wait(full + 8 * slot, (st / R::kStages) & 1);
+      const uint32_t a = ring + slot * R::kStage + wg * 64 * kBK;
+      const uint32_t b = ring + slot * R::kStage + R::kA;
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < kBK / 32; ++ks)
+        wgmma_s8<BN>(acc, smem_desc(a + ks * 32), smem_desc(b + ks * 32));
+      wgmma_commit();
+      wgmma_wait1();                     // stage kt - 1's products are done
+      if (kt > 0 && lane == 0)
+        mbar_arrive(empty + 8 * ((st - 1) % R::kStages));
+    }
+    wgmma_wait0();
+    if (lane == 0) mbar_arrive(empty + 8 * ((st - 1) % R::kStages));
+#pragma unroll
+    for (int pass = 0; pass < BN / kCols; ++pass) {
+      const long long c0 = n_base + pass * kCols;
+      stage_fragment<EPI, BN, kCols>(staged, acc, pass * (kCols / 8), c0, s,
+                                     scale, bias);
+      warpgroup_sync(wg);
+      write_out<kCols>(staged, static_cast<Out*>(out), s, m_base, c0, 64,
+                       tid & 127, 128);
+      warpgroup_sync(wg);                // the buffer is free again
+    }
   }
 }
 
@@ -555,33 +713,55 @@ bool tensor_map(CUtensorMap* map, const void* base, long long rows,
 }
 
 template <int BN, int EPI>
-int launch(const ConvShape& s, const int8_t* x, const int8_t* w, void* out,
-           const float* scale, const float* bias, int a_tma,
-           cudaStream_t stream) {
+int launch_gather(const ConvShape& s, const int8_t* x, const int8_t* w,
+                  void* out, const float* scale, const float* bias,
+                  cudaStream_t stream) {
   using Out = typename OutType<EPI>::T;
   constexpr size_t kStage = static_cast<size_t>(kBM + BN) * kBK;
   const int nk = (s.k + kBK - 1) / kBK;
-  const int stages = nk < 2 ? 2 : (nk > kMaxStages ? kMaxStages : nk);
+  const int stages =
+      nk < 2 ? 2 : (nk > kGatherStages ? kGatherStages : nk);
   const size_t ring = (nk < stages ? nk : stages) * kStage;
   const size_t staged = static_cast<size_t>(kBM) * (BN + kRowPad) * sizeof(Out);
-  // alignment, the barriers, then the ring or the staged tile
-  const size_t bytes = 2048 + (ring > staged ? ring : staged);
-  auto kernel = int8_conv_kernel<BN, EPI>;
+  const size_t bytes = (ring > staged ? ring : staged) + 1024;  // alignment
+  auto kernel = int8_conv_gather<BN, EPI>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(2048 + kMaxStages * kStage));
+      static_cast<int>(kGatherStages * kStage + 1024));
   if (err != cudaSuccess) return static_cast<int>(err);
-  alignas(64) CUtensorMap map_a{}, map_b{};
-  if (!tensor_map(&map_b, w, s.cout, s.k, s.k, BN) ||
-      (a_tma && !tensor_map(&map_a, x, s.m, s.cin, s.cin, kBM)))
-    return static_cast<int>(cudaErrorInvalidValue);
   const long long m_tiles = (s.m + kBM - 1) / kBM;
   const int n_tiles = (s.cout + BN - 1) / BN;
   if (m_tiles * n_tiles > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidConfiguration);
-  kernel<<<static_cast<unsigned>(m_tiles * n_tiles), kThreads, bytes,
-           stream>>>(map_a, map_b, s, x, out, scale, bias, stages, n_tiles,
-                     a_tma);
+  kernel<<<static_cast<unsigned>(m_tiles * n_tiles), kGatherThreads, bytes,
+           stream>>>(s, x, w, out, scale, bias, stages, n_tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int BN, int EPI>
+int launch_tma(const ConvShape& s, const int8_t* x, const int8_t* w,
+               void* out, const float* scale, const float* bias,
+               cudaStream_t stream) {
+  using Out = typename OutType<EPI>::T;
+  const int bytes = Ring<BN, Out>::kBytes;
+  auto kernel = int8_conv_tma<BN, EPI>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  alignas(64) CUtensorMap map_a{}, map_b{};
+  if (!tensor_map(&map_b, w, s.cout, s.k, s.k, BN) ||
+      !tensor_map(&map_a, x, s.m, s.cin, s.cin, kBM))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int device = 0, sms = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    device)) != cudaSuccess)
+    return static_cast<int>(err);
+  const int n_tiles = (s.cout + BN - 1) / BN;
+  const long long tiles = (s.m + kBM - 1) / kBM * n_tiles;
+  const unsigned grid = static_cast<unsigned>(tiles < sms ? tiles : sms);
+  kernel<<<grid, kTmaThreads, bytes, stream>>>(map_a, map_b, s, out, scale,
+                                               bias, n_tiles, tiles);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -589,10 +769,13 @@ template <int BN>
 int launch_bn(const ConvShape& s, const int8_t* x, const int8_t* w,
               void* out, const float* scale, const float* bias,
               int epilogue, int a_tma, cudaStream_t stream) {
-  switch (epilogue) {
-    case 0: return launch<BN, 0>(s, x, w, out, scale, bias, a_tma, stream);
-    case 1: return launch<BN, 1>(s, x, w, out, scale, bias, a_tma, stream);
-    case 2: return launch<BN, 2>(s, x, w, out, scale, bias, a_tma, stream);
+  switch (epilogue * 2 + a_tma) {
+    case 0: return launch_gather<BN, 0>(s, x, w, out, scale, bias, stream);
+    case 1: return launch_tma<BN, 0>(s, x, w, out, scale, bias, stream);
+    case 2: return launch_gather<BN, 1>(s, x, w, out, scale, bias, stream);
+    case 3: return launch_tma<BN, 1>(s, x, w, out, scale, bias, stream);
+    case 4: return launch_gather<BN, 2>(s, x, w, out, scale, bias, stream);
+    case 5: return launch_tma<BN, 2>(s, x, w, out, scale, bias, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -623,7 +806,7 @@ int int8_conv_launch(const void* x, const void* w, void* out,
   s.dt = dims[18]; s.dh = dims[19]; s.dw = dims[20];
   s.m = static_cast<long long>(s.n) * s.to * s.ho * s.wo;
   s.k = s.kt * s.kh * s.kw * s.cin;
-  const int a_tma = dims[22];
+  const int a_tma = dims[22] != 0;
   const bool plain = s.kt * s.kh * s.kw == 1 && s.st * s.sh * s.sw == 1 &&
                      s.pt + s.ph + s.pw == 0;
   if (s.cin % 16 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||

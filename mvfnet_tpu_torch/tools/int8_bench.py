@@ -24,7 +24,8 @@ Each ``--variant`` (another build of a kernel source, such as an older
 commit's ``int8_conv.cu`` unpacked from ``git archive``) is checked and
 timed beside the committed kernel on the same operands; a source without
 ``int8_conv_abi`` (the first kernel, which gathered any Cin) takes them
-unpadded. ``--tile-n`` times the committed kernel at other tile widths.
+unpadded. ``--tile-n`` times the committed kernel at other tile widths, ``--gather``
+with x gathered at the shapes whose plan takes it by TMA.
 Every variant is compiled at once, before the first shape. Medians of CUDA
 events around launches queued back to back. Prints one compact
 ``int8 bench:`` line per shape and the card's name and power limit, and
@@ -323,10 +324,11 @@ def bf16_ms(key):
 
 
 def shape_record(key, seed, variants=None, tile_ns=(), check_n=16,
-                 plain=False):
+                 plain=False, gather=False):
     """The committed kernel at one shape (and each of ``variants``,
     ``{name: library}``); see the module's docstring. ``plain`` adds the
-    plain version's time at the full shape."""
+    plain version's time at the full shape; ``gather`` the kernel's time
+    with x gathered where the plan takes it by TMA (``gather_ms``)."""
     variants = variants or {}
     x, wq, scale, bias, out_dtype = operands(key, seed)
     padding, _ = _geometry(key)
@@ -346,6 +348,11 @@ def shape_record(key, seed, variants=None, tile_ns=(), check_n=16,
         wp = q8.pack_weight(wq)
         rec['wrapper_ms'] = median_ms(lambda: q8.launch(q8.prepare(
             x, wp, *args, *eargs)))
+        if gather and op.plan.variant.endswith('tma'):
+            og = prepared(None, x, wq, key, *eargs)
+            og.dims[22] = 0
+            rec['gather_ms'] = median_ms(lambda: q8.launch(og))
+            del og
         rec['tile_ms'] = {}
         for bn in tile_ns:
             if bn != op.plan.tile_n:
@@ -390,7 +397,7 @@ def build_variants(specs, out_dir):
     for name, (path, proc) in procs.items():
         log = proc.communicate()[0]
         for line in log.splitlines():
-            if 'registers' in line or 'spill' in line:
+            if any(w in line for w in ('registers', 'spill', 'warning')):
                 print(f'nvcc [{name}]: {line.strip()}')
         if proc.returncode != 0:
             raise RuntimeError(f'nvcc failed for variant {name}:\n{log}')
@@ -407,6 +414,8 @@ def main(argv=None):
     ap.add_argument('--variant', action='append', default=[])
     ap.add_argument('--tile-n', type=int, action='append', default=[])
     ap.add_argument('--check-n', type=int, default=16)
+    ap.add_argument('--gather', action='store_true',
+                    help='also time the TMA shapes with x gathered')
     ap.add_argument('--shapes', default=None,
                     help='indices into PHASE12_SHAPES, comma-separated')
     ap.add_argument('--out', default=None)
@@ -420,7 +429,7 @@ def main(argv=None):
         timeout=60).stdout.strip()
     lib = q8.library()
     for line in _cuda.build_logs.get('int8_conv', '').splitlines():
-        if 'registers' in line or 'spill' in line:
+        if any(w in line for w in ('registers', 'spill', 'warning')):
             print(f'nvcc [committed]: {line.strip()}')
     del lib
     variants = build_variants(args.variant, os.path.join(
@@ -431,12 +440,14 @@ def main(argv=None):
     for i in picks:
         key = PHASE12_SHAPES[i]
         rec = shape_record(key, 1000 + i, variants, args.tile_n,
-                           args.check_n)
+                           args.check_n, gather=args.gather)
         records.append(rec)
         short = {k: rec[k] for k in ('case', 'variant', 'tile_n', 'equal',
                                      'ms', 'ms_int32', 'wrapper_ms',
                                      'library_ms', 'bf16_ms', 'bound_ms',
                                      'share_of_bound', 'tile_ms')}
+        if 'gather_ms' in rec:
+            short['gather_ms'] = rec['gather_ms']
         short['variants'] = {n: [v['equal'], v['ms'], v['wrapper_ms']]
                              for n, v in rec.get('variants', {}).items()}
         print('int8 bench: ' + json.dumps(short), flush=True)
