@@ -316,7 +316,6 @@ INT8_CALIBRATED = ('static_1100', 'static_1111')
 INT8_TWIN = {'carry_1111': 'static_1111'}
 INT8_MSGPACK = 'static_1100'
 INT8_CALIB_VIDEOS, INT8_RUNS, INT8_CHECK_N = 4, 3, 16
-INT8_PEAK_OPS = 1979e12     # H100 SXM dense int8 tensor-core peak
 INT8_KERNEL = dict(name='int8_conv', route='cuda',
                    source='mvfnet_tpu_torch/csrc/int8_conv.cu',
                    replaces='mvfnet_tpu/models/common.py:303')
@@ -3285,6 +3284,7 @@ def _int8_pass(name, model, video, norm, want, runs=INT8_RUNS):
     torch.cuda.synchronize()
     before = _launches_by_shape()
     q8.int8_conv_cuda.launches_by_shape.clear()
+    q8.int8_conv_cuda.launches_by_variant.clear()
     secs = []
     for _ in range(runs):
         t0 = time.perf_counter()
@@ -3293,6 +3293,7 @@ def _int8_pass(name, model, video, norm, want, runs=INT8_RUNS):
         secs.append(time.perf_counter() - t0)
     fused = _launches_by_shape() - before
     int8 = collections.Counter(q8.int8_conv_cuda.launches_by_shape)
+    variants = dict(q8.int8_conv_cuda.launches_by_variant)
     prof = device_profile(lambda: step(model, video))
     require('busy_ms' in prof, f'{name} profile: {prof}')
     require(bool(torch.isfinite(logits).all()), f'{name}: non-finite logits')
@@ -3307,7 +3308,9 @@ def _int8_pass(name, model, video, norm, want, runs=INT8_RUNS):
         by_kind_ms=prof['by_kind_ms'],
         rms_vs_reference=None if want is None else _rms_rel(logits, want),
         fused_launches={'/'.join(map(str, k)): v for k, v in fused.items()},
-        int8_launches=sum(int8.values()), fused=fused, int8=int8,
+        int8_launches=sum(int8.values()),
+        int8_variants=variants,
+        fused=fused, int8=int8,
         logits=logits)
 
 
@@ -3541,13 +3544,17 @@ def _int8_key_str(key):
 
 
 def _int8_kernel_records(counts):
-    """(a) the int8 kernel at every distinct shape (b) and (d) launched:
-    its int32 accumulators and its epilogue equal the plain version's
-    (``torch.equal``, N cut to INT8_CHECK_N for the f64 plain version), its
-    median ms and the plain version's at the full shape, the bound and,
-    at the 1x1 stride-1 shapes, ``torch._int_mm``'s time."""
-    import torch
-    from mvfnet_tpu_torch.ops import int8_conv as q8
+    """(a) the int8 kernel at every distinct shape (b) and (d) launched,
+    through ``tools/int8_bench.shape_record``: its int32 accumulators and
+    both epilogues equal the plain version's (``torch.equal``, N cut to
+    INT8_CHECK_N for the f64 plain version); its bare launch on operands
+    prepared in its layouts (``ms``, the shape's epilogue; ``ms_int32``),
+    the quantized modules' call to the wrapper (``wrapper_ms``), the plain
+    version at the full shape, the bound (a strided 1x1 counts only the
+    pixels it reads), ``torch._int_mm`` at the 1x1 stride-1 shapes
+    (``library_ms``, int32 out) and cuDNN's bf16 ``channels_last`` conv
+    (``bf16_ms``); the plan's variant and tile width."""
+    from mvfnet_tpu_torch.tools import int8_bench
     total = collections.Counter()
     by_case = collections.defaultdict(dict)
     for case, c in counts.items():
@@ -3557,75 +3564,28 @@ def _int8_kernel_records(counts):
     records = []
     for i, (key, n) in enumerate(sorted(total.items(), key=str)):
         nb, t, h, w, cin, cout, kernel, stride, pad, dil, epi = key
-        padding = tuple((p, p) for p in pad)
-        g = torch.Generator(device='cuda').manual_seed(1000 + i)
-        x = torch.randint(-127, 128, (nb, t, h, w, cin), generator=g,
-                          device='cuda', dtype=torch.int8)
-        wq = torch.randint(-127, 128, tuple(kernel) + (cin, cout),
-                           generator=g, device='cuda', dtype=torch.int8)
-        scale = torch.rand(cout, generator=g, device='cuda') * 1e-4 + 1e-6
-        bias = torch.randn(cout, generator=g, device='cuda')
-        out_dtype = None if epi == 'int32' else getattr(torch, epi)
-        args = (stride, padding, dil) + ((scale, None, out_dtype)
-                                         if out_dtype else ())
-        cut = x[:INT8_CHECK_N]
-        with torch.inference_mode():
-            got = q8.int8_conv_cuda(cut, wq, stride, padding, dil)
-            want = q8.int8_conv_plain(cut, wq, stride, padding, dil)
-            equal = torch.equal(got, want)
-            err = float((got.double() - want.double()).abs().max())
-            for dt in (torch.bfloat16, torch.float32):
-                equal &= torch.equal(
-                    q8.int8_conv_cuda(cut, wq, stride, padding, dil, scale,
-                                      bias, dt),
-                    q8.int8_conv_plain(cut, wq, stride, padding, dil, scale,
-                                       bias, dt))
-            torch.cuda.synchronize()
-            del got, want
-            ms = median_ms(lambda: q8.int8_conv_cuda(x, wq, *args), runs=10,
-                           warmup=2)
-            plain_ms = median_ms(lambda: q8.int8_conv_plain(x, wq, *args),
-                                 runs=3, warmup=1)
-            lib_ms = note = None
-            if (tuple(kernel) == (1, 1, 1) and tuple(stride) == (1, 1, 1)
-                    and cin % 8 == 0 and cout % 8 == 0):
-                a = x.reshape(-1, cin)
-                b = wq.reshape(cin, cout).t().contiguous().t()
-                try:
-                    lib_ms = median_ms(lambda: torch._int_mm(a, b), runs=10,
-                                       warmup=2)
-                except RuntimeError as e:
-                    note = str(e).splitlines()[0][:120]
-        torch.cuda.empty_cache()
-        to = (t + 2 * pad[0] - dil[0] * (kernel[0] - 1) - 1) // stride[0] + 1
-        ho = (h + 2 * pad[1] - dil[1] * (kernel[1] - 1) - 1) // stride[1] + 1
-        wo = (w + 2 * pad[2] - dil[2] * (kernel[2] - 1) - 1) // stride[2] + 1
-        k = kernel[0] * kernel[1] * kernel[2] * cin
-        m = nb * to * ho * wo
-        ops = 2 * m * k * cout
-        out_bytes = m * cout * (4 if epi in ('int32', 'float32') else 2)
-        nbytes = x.numel() + wq.numel() + out_bytes + (
-            0 if epi == 'int32' else 4 * cout)
-        t_ops = ops / INT8_PEAK_OPS * 1e3
-        t_bytes = nbytes / PEAK_BYTES * 1e3
-        rec = dict(INT8_KERNEL, case=_int8_key_str(key),
-                   shape=dict(x=[nb, t, h, w, cin], w=list(kernel) + [cin,
-                                                                     cout],
+        r = int8_bench.shape_record(key, 1000 + i, check_n=INT8_CHECK_N,
+                                    plain=True)
+        rec = dict(INT8_KERNEL, case=r['case'],
+                   shape=dict(x=[nb, t, h, w, cin],
+                              w=list(kernel) + [cin, cout],
                               stride=list(stride), padding=list(pad),
                               dilation=list(dil), epilogue=epi),
-                   launches=n, launches_by_case=by_case[key],
-                   max_abs_err=err, equal=bool(equal), check_n=min(
-                       nb, INT8_CHECK_N), ms=ms, plain_ms=plain_ms,
-                   bound_ms=max(t_ops, t_bytes),
-                   bound_by='bytes' if t_bytes >= t_ops else 'operations',
-                   ops=ops, bytes=nbytes, library_ms=lib_ms)
-        if note:
-            rec['library_note'] = note
+                   variant=r['variant'], tile_n=r['tile_n'], launches=n,
+                   launches_by_case=by_case[key],
+                   max_abs_err=r['max_abs_err'], equal=r['equal'],
+                   check_n=r['check_n'], ms=r['ms'],
+                   ms_int32=r['ms_int32'], wrapper_ms=r['wrapper_ms'],
+                   plain_ms=r['plain_ms'], bound_ms=r['bound_ms'],
+                   bound_by=r['bound_by'], ops=r['ops'], bytes=r['bytes'],
+                   share_of_bound=r['share_of_bound'],
+                   library_ms=r['library_ms'], bf16_ms=r['bf16_ms'])
+        if 'library_note' in r:
+            rec['library_note'] = r['library_note']
         print('int8 kernel: ' + json.dumps(rec))
-        require(equal, f'int8_conv {rec["case"]}: the kernel differs from '
-                       f'its plain version')
+        require(rec['equal'], f'int8_conv {rec["case"]}: the kernel differs '
+                              f'from its plain version')
         records.append(rec)
-        del x, wq
     return records
 
 
