@@ -27,17 +27,32 @@
 // output; its 3x3 convs from layer2 on sit above it and are bound by the
 // tensor cores.
 //
-// The design: one block of two warpgroups computes a 128 x BN output tile
-// (BN = 64, 128 or 256, a template argument chosen per launch so that x is
-// read once for Cout <= 256), each warpgroup 64 rows of it with
-// wgmma.mma_async m64nBNk32 s32.s8.s8, both operands K-major in shared
-// memory in the 128-byte swizzled layout read through matrix descriptors.
-// K streams through a ring of up to four stages of 128 bytes of K each:
-// x's im2col rows are gathered per 16-byte piece with cp.async (zero-filled
-// outside the image and past K) and written to their swizzled addresses;
-// so are w's rows. The epilogue stages the tile through shared memory and
-// writes it out with 16-byte stores, a row's bytes from neighbouring
-// threads.
+// The design. Both kernels compute 128 x BN output tiles (BN = 64, 128 or
+// 256, a template argument the wrapper chooses per launch: the narrowest
+// that covers Cout, so that x is read once for Cout <= 256), 64 rows per
+// warpgroup, with wgmma.mma_async m64nBNk32 s32.s8.s8, both operands
+// K-major in shared memory in the 128-byte swizzled layout (8-bit wgmma
+// takes no transpose) and read through matrix descriptors; K moves in
+// stages of 128 bytes, four k32 steps each. The epilogue stages the
+// products in shared memory, padded rows against bank conflicts, and
+// writes each row out in the widest piece (16, 8, 4 or 2 bytes) that
+// divides it, a row's pieces from neighbouring threads.
+//
+// - int8_conv_tma, for a 1x1 stride-1 unpadded conv, where x is the
+//   im2col matrix itself (most of the flagship's launches, all of them
+//   bound by bytes): a persistent block per SM, one producer thread that
+//   streams A's and B's tiles by 2-D tiled TMA into a ring of 3-8 stages
+//   (as many as shared memory holds) on full/empty mbarriers, running
+//   ahead across tiles, and two consumer warpgroups that keep one stage of
+//   wgmma in flight, then stage and write their rows while the producer
+//   fills the ring for the next tile.
+// - int8_conv_gather, for every other conv (3x3, strided, 3-D): all 256
+//   threads gather A's im2col rows (and B's rows) per 16-byte piece with
+//   cp.async, zero-filled outside the image and past K, into their
+//   swizzled addresses, a ring of up to four stages kept three ahead. The
+//   gather's throughput grows with the threads that issue it: a single
+//   producer warpgroup gathering for two consumers ran these shapes at
+//   half this kernel's speed.
 //
 // Built by nvcc into a shared library with a plain C interface, loaded by
 // mvfnet_tpu_torch/ops/_cuda.py through ctypes.

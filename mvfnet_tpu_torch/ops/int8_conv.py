@@ -7,7 +7,11 @@ int32)`` (``mvfnet_tpu/models/common.py`` ``QuantConv2d`` / ``QuantConv3d``,
 the split conv1 and the space-to-depth stem of
 ``mvfnet_tpu/models/backbones/resnet.py``). PyTorch has no int8 convolution
 on CUDA, so the port computes it in a hand-written kernel,
-``csrc/int8_conv.cu`` (an implicit GEMM on ``mma.sync`` s8 tensor cores).
+``csrc/int8_conv.cu`` (an implicit GEMM on ``wgmma`` s8 tensor cores: x by
+TMA where it is the im2col matrix, a 1x1 stride-1 conv, else gathered).
+``plan`` chooses the kernel's variant and tile width per shape and
+zero-pads Cin to a multiple of 16; the quantized modules hand the weight
+over in the kernel's layout (``int8_conv_packed``).
 
 Layouts: x int8 ``(N, T, H, W, Cin)`` channels last, w int8 ``(kt, kh, kw,
 Cin, Cout)``; a 2-D conv is T = kt = 1. ``stride``, ``dilation`` are per
@@ -301,9 +305,6 @@ def int8_conv_cuda(x: torch.Tensor, w: torch.Tensor, stride: Triple,
     """Launch the kernel on x's current CUDA stream (no sync), w in the JAX
     layout. Counts each launch in ``launches``, by ``int8_conv_key`` in
     ``launches_by_shape`` and by plan variant in ``launches_by_variant``."""
-    if x.device.type != 'cuda':
-        raise ValueError(f'int8_conv_cuda needs a CUDA tensor, got '
-                         f'{x.device}')
     _check(x, w, stride, padding, dilation)
     return int8_conv_packed_cuda(x, pack_weight(w), stride, padding,
                                  dilation, scale, bias, out_dtype)
