@@ -40,19 +40,23 @@
 //
 // - int8_conv_tma, for a 1x1 stride-1 unpadded conv, where x is the
 //   im2col matrix itself (most of the flagship's launches, all of them
-//   bound by bytes): a persistent block per SM, one producer thread that
-//   streams A's and B's tiles by 2-D tiled TMA into a ring of 3-8 stages
-//   (as many as shared memory holds) on full/empty mbarriers, running
-//   ahead across tiles, and two consumer warpgroups that keep one stage of
-//   wgmma in flight, then stage and write their rows while the producer
-//   fills the ring for the next tile.
-// - int8_conv_gather, for every other conv (3x3, strided, 3-D): all 256
-//   threads gather A's im2col rows (and B's rows) per 16-byte piece with
-//   cp.async, zero-filled outside the image and past K, into their
-//   swizzled addresses, a ring of up to four stages kept three ahead. The
-//   gather's throughput grows with the threads that issue it: a single
-//   producer warpgroup gathering for two consumers ran these shapes at
-//   half this kernel's speed.
+//   bound by bytes), and for a conv whose 128-pixel tiles are whole output
+//   rows or images with Cin a multiple of 128 (R50's 3x3 convs and strided
+//   shortcuts from layer2 on), where a stage's A tile is one box of x at a
+//   tap's offset, strided as the conv is, zeros in the padding: a
+//   persistent block per SM, one producer thread that streams A's and B's
+//   tiles by tiled TMA into a ring of 3-8 stages (as many as shared memory
+//   holds) on full/empty mbarriers, running ahead across tiles, and two
+//   consumer warpgroups that keep one stage of wgmma in flight, then stage
+//   and write their rows while the producer fills the ring for the next
+//   tile.
+// - int8_conv_gather, for every other conv (layer1's 3x3 at Cin 64, 3-D
+//   kernels, odd sizes): all 256 threads gather A's im2col rows (and B's
+//   rows) per 16-byte piece with cp.async, zero-filled outside the image
+//   and past K, into their swizzled addresses, a ring of up to four stages
+//   kept three ahead. The gather's throughput grows with the threads that
+//   issue it: a single producer warpgroup gathering for two consumers ran
+//   these shapes at half this kernel's speed.
 //
 // Built by nvcc into a shared library with a plain C interface, loaded by
 // mvfnet_tpu_torch/ops/_cuda.py through ctypes.
@@ -205,6 +209,20 @@ __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
 // The 128 threads of one warpgroup (barrier 1 + its index).
 __device__ __forceinline__ void warpgroup_sync(int wg) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+}
+
+// One box of a 4-D tensor map (x as channels x W x H x images, strided
+// along W and H) at element (c, w, h, n), its bytes counted on `bar`;
+// coordinates outside x read zeros.
+__device__ __forceinline__ void tma_load4(uint32_t dst, const CUtensorMap* map,
+                                          int c, int w, int h, int n,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c), "r"(w), "r"(h), "r"(n),
+      "r"(bar)
+      : "memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -588,24 +606,29 @@ __global__ void __launch_bounds__(kGatherThreads, 1)
                 kGatherThreads);
 }
 
-// The TMA kernel, for a 1x1 stride-1 unpadded conv, whose im2col matrix
-// is x itself. A persistent block walks output tiles b, b + gridDim.x,
-// ...; tile i is (i / n_tiles, i % n_tiles), so the blocks that run side
-// by side share x's rows. One thread of the producer warp fills the ring:
-// for each stage it waits for the slot's release, then starts the TMA
-// copies of A's and B's tiles on the slot's full barrier, running ahead
-// of the consumers across tiles. Each consumer warpgroup waits for a
-// stage, runs four k32 wgmma on its 64 rows, keeps one stage of products
-// in flight and releases the stage before; after a tile's last stage it
-// stages its rows in its own buffer, kCols columns at a time, and writes
-// them out while the producer already fills the ring for the next tile.
+// The TMA kernel, for a conv whose A tiles TMA can copy: a 1x1 stride-1
+// unpadded conv, whose im2col matrix is x itself (`taps` 0: a 2-D map of
+// M x Cin), or one where a tile's 128 pixels are whole rows of an image
+// or whole images and a stage's 128 bytes of K lie in one tap (`taps` 1:
+// a 4-D map of x, one box a stage at the tap's offset, strided along W
+// and H as the conv is, zeros in the padding). A persistent block walks
+// output tiles b, b + gridDim.x, ...; tile i is (i / n_tiles, i %
+// n_tiles), so the blocks that run side by side share x's rows. One
+// thread of the producer warp fills the ring: for each stage it waits for
+// the slot's release, then starts the TMA copies of A's and B's tiles on
+// the slot's full barrier, running ahead of the consumers across tiles.
+// Each consumer warpgroup waits for a stage, runs four k32 wgmma on its 64
+// rows, keeps one stage of products in flight and releases the stage
+// before; after a tile's last stage it stages its rows in its own buffer,
+// kCols columns at a time, and writes them out while the producer already
+// fills the ring for the next tile.
 template <int BN, int EPI>
 __global__ void __launch_bounds__(kTmaThreads, 1)
     int8_conv_tma(const __grid_constant__ CUtensorMap map_a,
                   const __grid_constant__ CUtensorMap map_b, ConvShape s,
                   void* __restrict__ out, const float* __restrict__ scale,
                   const float* __restrict__ bias, int n_tiles,
-                  long long tiles) {
+                  long long tiles, int taps) {
   using Out = typename OutType<EPI>::T;
   using R = Ring<BN, Out>;
   constexpr int kCols = R::kCols;
@@ -632,13 +655,22 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
     for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
       const int m_base = static_cast<int>(tile / n_tiles) * kBM;
       const int n_base = static_cast<int>(tile % n_tiles) * BN;
+      // the tile's first image (frames count as images) and output row
+      const int image = m_base / (s.ho * s.wo);
+      const int row = m_base % (s.ho * s.wo) / s.wo;
       for (int kt = 0; kt < nk; ++kt, ++st) {
         const int slot = st % R::kStages;
         const uint32_t a = ring + slot * R::kStage, bar = full + 8 * slot;
         mbar_wait(empty + 8 * slot, ((st / R::kStages) & 1) ^ 1);
         mbar_expect_tx(bar, R::kStage);
         tma_load(a + R::kA, &map_b, kt * kBK, n_base, bar);
-        tma_load(a, &map_a, kt * kBK, m_base, bar);
+        if (taps) {
+          const int tap = kt * kBK / s.cin, c0 = kt * kBK - tap * s.cin;
+          tma_load4(a, &map_a, c0, tap % s.kw * s.dw - s.pw,
+                    row * s.sh - s.ph + tap / s.kw * s.dh, image, bar);
+        } else {
+          tma_load(a, &map_a, kt * kBK, m_base, bar);
+        }
       }
     }
     return;
@@ -753,9 +785,46 @@ int launch_gather(const ConvShape& s, const int8_t* x, const int8_t* w,
   return static_cast<int>(cudaGetLastError());
 }
 
+// x (N*T images of H x W x Cin) in boxes of 128 bytes of Cin x Wo x rows
+// x images, strided along W and H by the conv's strides: a tile of 128
+// output pixels for one tap. Zeros outside x.
+bool taps_map(CUtensorMap* map, const void* x, const ConvShape& s) {
+  const EncodeTiled encode = encode_tiled();
+  const int hw = s.ho * s.wo;
+  int rows, images;
+  if (hw % kBM == 0 && kBM % s.wo == 0) {
+    rows = kBM / s.wo;
+    images = 1;
+  } else if (kBM % hw == 0) {
+    rows = s.ho;
+    images = kBM / hw;
+  } else {
+    return false;
+  }
+  if (!encode) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(s.cin),
+                              static_cast<cuuint64_t>(s.w),
+                              static_cast<cuuint64_t>(s.h),
+                              static_cast<cuuint64_t>(s.n) * s.t};
+  const cuuint64_t strides[3] = {
+      static_cast<cuuint64_t>(s.cin),
+      static_cast<cuuint64_t>(s.w) * s.cin,
+      static_cast<cuuint64_t>(s.h) * s.w * s.cin};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(kBK),
+                             static_cast<cuuint32_t>(s.wo * s.sw),
+                             static_cast<cuuint32_t>(rows * s.sh),
+                             static_cast<cuuint32_t>(images)};
+  const cuuint32_t elem[4] = {1, static_cast<cuuint32_t>(s.sw),
+                              static_cast<cuuint32_t>(s.sh), 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, const_cast<void*>(x),
+                dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 template <int BN, int EPI>
 int launch_tma(const ConvShape& s, const int8_t* x, const int8_t* w,
-               void* out, const float* scale, const float* bias,
+               void* out, const float* scale, const float* bias, int taps,
                cudaStream_t stream) {
   using Out = typename OutType<EPI>::T;
   const int bytes = Ring<BN, Out>::kBytes;
@@ -765,7 +834,8 @@ int launch_tma(const ConvShape& s, const int8_t* x, const int8_t* w,
   if (err != cudaSuccess) return static_cast<int>(err);
   alignas(64) CUtensorMap map_a{}, map_b{};
   if (!tensor_map(&map_b, w, s.cout, s.k, s.k, BN) ||
-      !tensor_map(&map_a, x, s.m, s.cin, s.cin, kBM))
+      !(taps ? taps_map(&map_a, x, s)
+             : tensor_map(&map_a, x, s.m, s.cin, s.cin, kBM)))
     return static_cast<int>(cudaErrorInvalidValue);
   int device = 0, sms = 0;
   if ((err = cudaGetDevice(&device)) != cudaSuccess ||
@@ -776,21 +846,23 @@ int launch_tma(const ConvShape& s, const int8_t* x, const int8_t* w,
   const long long tiles = (s.m + kBM - 1) / kBM * n_tiles;
   const unsigned grid = static_cast<unsigned>(tiles < sms ? tiles : sms);
   kernel<<<grid, kTmaThreads, bytes, stream>>>(map_a, map_b, s, out, scale,
-                                               bias, n_tiles, tiles);
+                                               bias, n_tiles, tiles, taps);
   return static_cast<int>(cudaGetLastError());
 }
 
+// a_path: 0 gather, 1 TMA of x as a matrix, 2 TMA of x a tap a stage
 template <int BN>
 int launch_bn(const ConvShape& s, const int8_t* x, const int8_t* w,
               void* out, const float* scale, const float* bias,
-              int epilogue, int a_tma, cudaStream_t stream) {
-  switch (epilogue * 2 + a_tma) {
+              int epilogue, int a_path, cudaStream_t stream) {
+  const int taps = a_path == 2;
+  switch (epilogue * 2 + (a_path != 0)) {
     case 0: return launch_gather<BN, 0>(s, x, w, out, scale, bias, stream);
-    case 1: return launch_tma<BN, 0>(s, x, w, out, scale, bias, stream);
+    case 1: return launch_tma<BN, 0>(s, x, w, out, scale, bias, taps, stream);
     case 2: return launch_gather<BN, 1>(s, x, w, out, scale, bias, stream);
-    case 3: return launch_tma<BN, 1>(s, x, w, out, scale, bias, stream);
+    case 3: return launch_tma<BN, 1>(s, x, w, out, scale, bias, taps, stream);
     case 4: return launch_gather<BN, 2>(s, x, w, out, scale, bias, stream);
-    case 5: return launch_tma<BN, 2>(s, x, w, out, scale, bias, stream);
+    case 5: return launch_tma<BN, 2>(s, x, w, out, scale, bias, taps, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -804,10 +876,18 @@ extern "C" {
 // any Cin).
 int int8_conv_abi(void) { return 2; }
 
+// The paths of x this build takes, a bit each (dims[22]: 0 gather, 1 TMA
+// as a matrix, 2 TMA a tap a box); a build without this function takes
+// 0 and 1.
+int int8_conv_a_paths(void) { return 0x7; }
+
 // dims: n t h w cin, to ho wo cout, kt kh kw, st sh sw, pt ph pw, dt dh dw,
-// then the tile width BN (64, 128 or 256) and whether x's tiles come by TMA
-// (a 1x1 stride-1 conv without padding) (23 ints). Cin must be a multiple
-// of 16 and x and w 16-byte aligned. Returns the launch's cudaError_t.
+// then the tile width BN (64, 128 or 256) and x's path: 0 gathered, 1 by
+// TMA as a matrix (a 1x1 stride-1 conv without padding), 2 by TMA a tap a
+// stage (kt 1, no temporal stride or padding, Cin a multiple of 128, 128
+// output pixels whole rows or whole images) (23 ints). Cin must be a
+// multiple of 16 and x and w 16-byte aligned. Returns the launch's
+// cudaError_t.
 int int8_conv_launch(const void* x, const void* w, void* out,
                      const void* scale, const void* bias, const int* dims,
                      int epilogue, void* stream) {
@@ -821,11 +901,13 @@ int int8_conv_launch(const void* x, const void* w, void* out,
   s.dt = dims[18]; s.dh = dims[19]; s.dw = dims[20];
   s.m = static_cast<long long>(s.n) * s.to * s.ho * s.wo;
   s.k = s.kt * s.kh * s.kw * s.cin;
-  const int a_tma = dims[22] != 0;
+  const int a_path = dims[22];
   const bool plain = s.kt * s.kh * s.kw == 1 && s.st * s.sh * s.sw == 1 &&
                      s.pt + s.ph + s.pw == 0;
+  const bool taps = s.kt == 1 && s.st == 1 && s.pt == 0 && s.cin % 128 == 0;
   if (s.cin % 16 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(w) % 16 != 0 || (a_tma && !plain))
+      reinterpret_cast<uintptr_t>(w) % 16 != 0 || a_path < 0 ||
+      a_path > 2 || (a_path == 1 && !plain) || (a_path == 2 && !taps))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto* xi = static_cast<const int8_t*>(x);
   const auto* wi = static_cast<const int8_t*>(w);
@@ -834,11 +916,11 @@ int int8_conv_launch(const void* x, const void* w, void* out,
   const auto st = static_cast<cudaStream_t>(stream);
   switch (dims[21]) {
     case 64:
-      return launch_bn<64>(s, xi, wi, out, sc, bi, epilogue, a_tma, st);
+      return launch_bn<64>(s, xi, wi, out, sc, bi, epilogue, a_path, st);
     case 128:
-      return launch_bn<128>(s, xi, wi, out, sc, bi, epilogue, a_tma, st);
+      return launch_bn<128>(s, xi, wi, out, sc, bi, epilogue, a_path, st);
     case 256:
-      return launch_bn<256>(s, xi, wi, out, sc, bi, epilogue, a_tma, st);
+      return launch_bn<256>(s, xi, wi, out, sc, bi, epilogue, a_path, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -162,29 +162,66 @@ def int8_conv_plain(x: torch.Tensor, w: torch.Tensor, stride: Triple,
 
 class Plan(NamedTuple):
     """How the kernel runs one shape: ``variant`` (``'tma'`` where x's
-    im2col matrix is x itself, a 1x1 stride-1 unpadded conv, so that x's
-    tiles come by TMA; ``'gather'`` where they are gathered; either with
-    ``'padded_'`` in front where Cin is zero-padded to ``cin``, a multiple
-    of 16, first), ``cin`` and ``tile_n``, the output channels a block
-    computes (the kernel's BN)."""
+    im2col matrix is x itself, a 1x1 stride-1 unpadded conv; ``'tma_taps'``
+    where each 128-row tile of it is one box of x a tap, see
+    ``taps_box``; both by TMA; ``'gather'`` where x's rows are gathered;
+    any of them with ``'padded_'`` in front where Cin is zero-padded to
+    ``cin``, a multiple of 16, first), ``cin`` and ``tile_n``, the output
+    channels a block computes (the kernel's BN)."""
     variant: str
     cin: int
     tile_n: int
 
 
-def plan(cin: int, cout: int, kernel: Triple, stride: Triple,
-         padding: Sequence[Tuple[int, int]]) -> Plan:
-    """The kernel's plan for a conv: Cin rounded up to a multiple of 16
-    (16-byte pieces of one tap), and the narrowest tile width that covers
-    Cout, or the widest (256) above it, so that x is read once for Cout <=
-    256."""
+# the kernel's A path for each variant (dims[22] of its C interface)
+A_PATH = {'gather': 0, 'tma': 1, 'tma_taps': 2}
+
+
+def taps_box(cin: int, kernel: Triple, stride: Triple,
+             padding: Sequence[Tuple[int, int]],
+             out: Sequence[int]) -> Optional[Tuple[int, int]]:
+    """``(rows, images)`` of the box of x (channels last, frames as images)
+    that holds one tap's 128 bytes of Cin for 128 consecutive output
+    pixels, ``rows`` output rows of ``images`` images, or None where there
+    is none: the conv must move in H and W only (kt = 1, no temporal
+    stride or padding), Cin a multiple of 128 (a stage's 128 bytes of K in
+    one tap), and 128 pixels whole rows of one image or whole images; a
+    box spans at most 256 elements of x along an axis."""
+    to, ho, wo = out
+    if (kernel[0] != 1 or stride[0] != 1 or tuple(padding[0]) != (0, 0)
+            or cin % 128):
+        return None
+    if ho * wo % 128 == 0 and 128 % wo == 0:
+        rows, images = 128 // wo, 1
+    elif 128 % (ho * wo) == 0:
+        rows, images = ho, 128 // (ho * wo)
+    else:
+        return None
+    if wo * stride[2] > 256 or rows * stride[1] > 256:
+        return None
+    return rows, images
+
+
+def plan(x_shape: Sequence[int], cout: int, kernel: Triple, stride: Triple,
+         padding: Sequence[Tuple[int, int]], dilation: Triple) -> Plan:
+    """The kernel's plan for a conv of x ``(N, T, H, W, Cin)``: Cin rounded
+    up to a multiple of 16 (16-byte pieces of one tap); x's tiles by TMA
+    where ``taps_box`` or the 1x1 stride-1 case allows, else gathered; and
+    the narrowest tile width that covers Cout, or the widest (256) above
+    it, so that x is read once for Cout <= 256."""
+    cin = x_shape[-1]
     cin16 = -(-cin // CIN_ALIGN) * CIN_ALIGN
-    plain = (tuple(kernel) == (1, 1, 1) and tuple(stride) == (1, 1, 1)
-             and all(tuple(p) == (0, 0) for p in padding))
-    variant = ('padded_' if cin16 != cin else '') + (
-        'tma' if plain else 'gather')
+    out = [_out_size(x_shape[1 + i], kernel[i], stride[i], padding[i],
+                     dilation[i]) for i in range(3)]
+    if (tuple(kernel) == (1, 1, 1) and tuple(stride) == (1, 1, 1)
+            and all(tuple(p) == (0, 0) for p in padding)):
+        path = 'tma'
+    elif taps_box(cin16, kernel, stride, padding, out):
+        path = 'tma_taps'
+    else:
+        path = 'gather'
     tile_n = next((b for b in TILE_WIDTHS if b >= cout), TILE_WIDTHS[-1])
-    return Plan(variant, cin16, tile_n)
+    return Plan(('padded_' if cin16 != cin else '') + path, cin16, tile_n)
 
 
 def pack_weight(w: torch.Tensor) -> torch.Tensor:
@@ -238,7 +275,7 @@ def prepare(x: torch.Tensor, wp: torch.Tensor, stride: Triple,
         raise TypeError(f'int8 conv epilogue writes float32 or bfloat16, '
                         f'not {out_dtype}')
     n, cin, cout = x.shape[0], x.shape[-1], wp.shape[0]
-    p = plan(cin, cout, wp.shape[1:4], stride, padding)
+    p = plan(x.shape, cout, wp.shape[1:4], stride, padding, dilation)
     if tile_n is not None:
         if tile_n not in TILE_WIDTHS:
             raise ValueError(f'tile_n {tile_n} is not one of {TILE_WIDTHS}')
@@ -257,7 +294,7 @@ def prepare(x: torch.Tensor, wp: torch.Tensor, stride: Triple,
     dims = (ctypes.c_int * 23)(
         *xc.shape, to, ho, wo, cout, *wc.shape[1:4], *stride,
         *(q[0] for q in padding), *dilation, p.tile_n,
-        int(p.variant.endswith('tma')))
+        A_PATH[p.variant.replace('padded_', '')])
     return Launch(xc, wc, out, sc, bi, dims, _EPILOGUE[epi], p)
 
 

@@ -261,13 +261,20 @@ def _legacy_launch(x, wp, key, scale, bias, out_dtype):
 
 def prepared(lib, x, wq, key, scale=None, bias=None, out_dtype=None,
              tile_n=None):
-    """One launch's operands for ``lib`` (None: the committed kernel)."""
+    """One launch's operands for ``lib`` (None: the committed kernel); a
+    build that does not take the plan's path for x gathers it."""
     wp = q8.pack_weight(wq)
     if lib is not None and is_legacy(lib):
         return _legacy_launch(x, wp, key, scale, bias, out_dtype)
     padding, _ = _geometry(key)
-    return q8.prepare(x, wp, key[7], padding, key[9], scale, bias,
-                      out_dtype, tile_n)
+    op = q8.prepare(x, wp, key[7], padding, key[9], scale, bias, out_dtype,
+                    tile_n)
+    if lib is not None:
+        paths = (lib.int8_conv_a_paths()
+                 if hasattr(lib, 'int8_conv_a_paths') else 0x3)
+        if not paths >> op.dims[22] & 1:
+            op.dims[22] = 0
+    return op
 
 
 def equal_to_plain(lib, x, wq, key, scale, bias):
@@ -348,7 +355,7 @@ def shape_record(key, seed, variants=None, tile_ns=(), check_n=16,
         wp = q8.pack_weight(wq)
         rec['wrapper_ms'] = median_ms(lambda: q8.launch(q8.prepare(
             x, wp, *args, *eargs)))
-        if gather and op.plan.variant.endswith('tma'):
+        if gather and 'tma' in op.plan.variant:
             og = prepared(None, x, wq, key, *eargs)
             og.dims[22] = 0
             rec['gather_ms'] = median_ms(lambda: q8.launch(og))
@@ -405,6 +412,8 @@ def build_variants(specs, out_dir):
         for fn, (argtypes, restype) in q8._SIGNATURES.items():
             getattr(lib, fn).argtypes = list(argtypes)
             getattr(lib, fn).restype = restype
+        if hasattr(lib, 'int8_conv_a_paths'):
+            lib.int8_conv_a_paths.restype = ctypes.c_int
         libs[name] = lib
     return libs
 

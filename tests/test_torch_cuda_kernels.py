@@ -440,7 +440,9 @@ def test_i3d_on_the_card_matches_fp32_cpu_and_launches_no_kernel(cuda):
 # Cin 64 (K = 576, not a multiple of the 128-byte stage), a 3x3 at Cin 512
 # (K = 4608: 36 stages around the ring), X3D's Cin 24 and 108 (padded to
 # 32 and 112), a 2-D stride-2 1x1, and tile widths 64 and 128 on the TMA
-# path
+# path; then x a tap a box by TMA: a 3x3 whose tiles are 8 output rows, a
+# stride-2 3x3 whose tiles are two images with a ragged last tile, a 1x3x3
+# over frames, and a dilated 3x3
 INT8_SHAPES = [
     ((2, 1, 16, 16, 64), (1, 1, 1, 256), (1, 1, 1), ((0, 0),) * 3,
      (1, 1, 1)),
@@ -478,6 +480,14 @@ INT8_SHAPES = [
      (1, 1, 1)),
     ((2, 1, 20, 20, 64), (1, 1, 1, 128), (1, 1, 1), ((0, 0),) * 3,
      (1, 1, 1)),
+    ((2, 1, 16, 16, 128), (1, 3, 3, 64), (1, 1, 1),
+     ((0, 0), (1, 1), (1, 1)), (1, 1, 1)),
+    ((3, 1, 16, 16, 256), (1, 3, 3, 128), (1, 2, 2),
+     ((0, 0), (1, 1), (1, 1)), (1, 1, 1)),
+    ((2, 3, 8, 8, 128), (1, 3, 3, 256), (1, 1, 1),
+     ((0, 0), (1, 1), (1, 1)), (1, 1, 1)),
+    ((1, 1, 16, 16, 128), (1, 3, 3, 96), (1, 1, 1),
+     ((0, 0), (2, 2), (2, 2)), (1, 2, 2)),
 ]
 
 
@@ -509,14 +519,14 @@ def test_int8_conv_equals_plain(cuda, case):
 def test_int8_conv_counts_each_variant(cuda):
     """One launch of each variant of the kernel's plan moves its counter
     in ``launches_by_variant``, and only its counter."""
-    cases = {'tma': 0, 'gather': 1, 'padded_gather': 3,
+    cases = {'tma': 0, 'gather': 1, 'padded_gather': 3, 'tma_taps': 9,
              'padded_tma': INT8_SHAPES.index(
                  ((2, 4, 8, 8, 24), (1, 1, 1, 54), (1, 1, 1),
                   ((0, 0),) * 3, (1, 1, 1)))}
     for variant, case in cases.items():
         xs, ws, stride, padding, dilation = INT8_SHAPES[case]
-        assert q8.plan(xs[-1], ws[3], ws[:3], stride, padding).variant == \
-            variant
+        assert q8.plan(xs, ws[3], ws[:3], stride, padding,
+                       dilation).variant == variant
         x = torch.ones(xs, dtype=torch.int8, device='cuda')
         w = torch.ones(ws[:3] + (xs[-1], ws[3]), dtype=torch.int8,
                        device='cuda')

@@ -26,37 +26,48 @@ CARD_PLANS = [
     ('tma', 64, 256), ('gather', 256, 64), ('gather', 128, 128),
     ('padded_gather', 16, 64), ('tma', 32, 128), ('padded_tma', 64, 64),
     ('gather', 64, 64), ('gather', 64, 128), ('gather', 32, 64),
-    ('gather', 128, 256), ('tma', 64, 256), ('gather', 64, 64),
+    ('tma_taps', 128, 256), ('tma', 64, 256), ('gather', 64, 64),
     ('gather', 512, 128), ('padded_tma', 32, 64), ('padded_tma', 112, 64),
-    ('gather', 256, 256), ('tma', 256, 64), ('tma', 64, 128),
+    ('tma_taps', 256, 256), ('tma', 256, 64), ('tma', 64, 128),
+    ('tma_taps', 128, 64), ('tma_taps', 256, 128), ('tma_taps', 128, 256),
+    ('tma_taps', 128, 128),
 ]
 
 
 @pytest.mark.parametrize('case', range(len(INT8_SHAPES)))
 def test_plan_of_each_card_test_shape(case):
     xs, ws, stride, padding, dilation = INT8_SHAPES[case]
-    assert tuple(q8.plan(xs[-1], ws[3], ws[:3], stride, padding)) == \
-        CARD_PLANS[case]
+    assert tuple(q8.plan(xs, ws[3], ws[:3], stride, padding,
+                         dilation)) == CARD_PLANS[case]
 
 
 def test_card_tests_cover_every_variant_and_tile_width():
-    plans = [q8.plan(xs[-1], ws[3], ws[:3], st, pad)
-             for xs, ws, st, pad, _ in INT8_SHAPES]
-    assert {p.variant for p in plans} == {'tma', 'gather', 'padded_tma',
-                                          'padded_gather'}
+    plans = [q8.plan(xs, ws[3], ws[:3], st, pad, dil)
+             for xs, ws, st, pad, dil in INT8_SHAPES]
+    assert {p.variant for p in plans} == {'tma', 'tma_taps', 'gather',
+                                          'padded_tma', 'padded_gather'}
     assert {p.tile_n for p in plans} == set(q8.TILE_WIDTHS)
 
 
 @pytest.mark.parametrize('key', int8_bench.PHASE12_SHAPES,
                          ids=int8_bench.key_str)
 def test_plan_of_each_phase12_shape(key):
-    """TMA exactly where x is the im2col matrix (1x1, stride 1, no
-    padding), Cin padded to the next multiple of 16, the narrowest tile
+    """TMA of x as a matrix exactly where x is the im2col matrix (1x1,
+    stride 1, no padding); a tap a box where the conv moves in H and W
+    only, Cin is a multiple of 128 and 128 output pixels are whole rows
+    or images; Cin padded to the next multiple of 16; the narrowest tile
     that covers Cout (256 above it)."""
     nb, t, h, w, cin, cout, kernel, stride, pad, dil, epi = key
-    p = q8.plan(cin, cout, kernel, stride, tuple((q, q) for q in pad))
+    p = q8.plan((nb, t, h, w, cin), cout, kernel, stride,
+                tuple((q, q) for q in pad), dil)
     plain = kernel == (1, 1, 1) and stride == (1, 1, 1) and pad == (0, 0, 0)
-    assert p.variant.endswith('tma') == plain
+    ho = (h + 2 * pad[1] - dil[1] * (kernel[1] - 1) - 1) // stride[1] + 1
+    wo = (w + 2 * pad[2] - dil[2] * (kernel[2] - 1) - 1) // stride[2] + 1
+    taps = (not plain and kernel[0] == 1 and stride[0] == 1 and
+            pad[0] == 0 and cin % 128 == 0 and
+            (ho * wo % 128 == 0 and 128 % wo == 0 or 128 % (ho * wo) == 0))
+    assert p.variant.replace('padded_', '') == (
+        'tma' if plain else 'tma_taps' if taps else 'gather')
     assert p.variant.startswith('padded_') == (cin % 16 != 0)
     assert p.cin % 16 == 0 and cin <= p.cin < cin + 16
     assert p.tile_n == (64 if cout <= 64 else 128 if cout <= 128 else 256)
@@ -119,8 +130,8 @@ def test_channel_padding_leaves_the_results_unchanged(xs, ws, stride, pad):
     w = _rand_int8(rng, ws[:3] + (xs[-1], ws[3]))
     scale = torch.from_numpy(rng.rand(ws[3]).astype(np.float32) * 1e-3)
     bias = torch.from_numpy(rng.randn(ws[3]).astype(np.float32))
-    cin16 = q8.plan(xs[-1], ws[3], ws[:3], stride,
-                    tuple((p, p) for p in pad)).cin
+    cin16 = q8.plan(xs, ws[3], ws[:3], stride, tuple((p, p) for p in pad),
+                    (1, 1, 1)).cin
     assert cin16 > xs[-1]
     xp = torch.nn.functional.pad(x, (0, cin16 - xs[-1]))
     wp = q8.unpack_weight(torch.nn.functional.pad(q8.pack_weight(w),
@@ -191,6 +202,24 @@ def test_quant_modules_hand_over_the_packed_weight(kind, monkeypatch):
 
     monkeypatch.setattr(q8, 'int8_conv_packed', by_jax_layout)
     assert torch.equal(got, m(x))
+
+
+@pytest.mark.parametrize('cin,kernel,stride,padding,out,box', [
+    (128, (1, 3, 3), (1, 1, 1), (0, 1, 1), (1, 32, 32), (4, 1)),
+    (256, (1, 3, 3), (1, 2, 2), (0, 1, 1), (1, 8, 8), (8, 2)),
+    (512, (1, 1, 1), (1, 2, 2), (0, 0, 0), (1, 4, 4), (4, 8)),
+    (128, (1, 3, 3), (1, 1, 1), (0, 1, 1), (1, 12, 12), None),
+    (64, (1, 3, 3), (1, 1, 1), (0, 1, 1), (1, 32, 32), None),
+    (128, (3, 3, 3), (1, 1, 1), (1, 1, 1), (4, 8, 8), None),
+    (128, (1, 3, 3), (2, 1, 1), (0, 1, 1), (2, 8, 8), None),
+    (128, (1, 1, 3), (1, 1, 1), (0, 0, 1), (1, 1, 512), None),
+])
+def test_taps_box(cin, kernel, stride, padding, out, box):
+    """``(rows, images)`` where 128 output pixels are whole rows or whole
+    images of a conv that moves in H and W only with Cin % 128 == 0, and
+    the box spans at most 256 elements along an axis; else None."""
+    assert q8.taps_box(cin, kernel, stride, tuple((p, p) for p in padding),
+                       out) == box
 
 
 def test_bound_counts_the_pixels_a_strided_pointwise_conv_reads():
