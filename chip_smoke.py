@@ -3539,10 +3539,6 @@ def _new_backbones():
         torch.cuda.empty_cache()
 
 
-def _int8_key_str(key):
-    return '/'.join(map(str, key))
-
-
 def _int8_kernel_records(counts):
     """(a) the int8 kernel at every distinct shape (b) and (d) launched,
     through ``tools/int8_bench.shape_record``: its int32 accumulators and

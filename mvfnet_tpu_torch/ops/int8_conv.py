@@ -258,12 +258,10 @@ def prepare(x: torch.Tensor, wp: torch.Tensor, stride: Triple,
             padding: Sequence[Tuple[int, int]], dilation: Triple,
             scale: Optional[torch.Tensor] = None,
             bias: Optional[torch.Tensor] = None,
-            out_dtype: Optional[torch.dtype] = None,
-            tile_n: Optional[int] = None) -> Launch:
+            out_dtype: Optional[torch.dtype] = None) -> Launch:
     """Check a call with a packed weight ``wp`` ``(Cout, kt, kh, kw,
     Cin)``, zero-pad Cin where the plan says so, make scale and bias
-    contiguous float32 of length Cout (once), and allocate the output.
-    ``tile_n`` overrides the plan's tile width (to compare widths)."""
+    contiguous float32 of length Cout (once), and allocate the output."""
     if x.device.type != 'cuda':
         raise ValueError(f'int8_conv_cuda needs a CUDA tensor, got '
                          f'{x.device}')
@@ -276,10 +274,6 @@ def prepare(x: torch.Tensor, wp: torch.Tensor, stride: Triple,
                         f'not {out_dtype}')
     n, cin, cout = x.shape[0], x.shape[-1], wp.shape[0]
     p = plan(x.shape, cout, wp.shape[1:4], stride, padding, dilation)
-    if tile_n is not None:
-        if tile_n not in TILE_WIDTHS:
-            raise ValueError(f'tile_n {tile_n} is not one of {TILE_WIDTHS}')
-        p = p._replace(tile_n=tile_n)
     if p.cin != cin:
         x = F.pad(x, (0, p.cin - cin))
         wp = F.pad(wp, (0, p.cin - cin))

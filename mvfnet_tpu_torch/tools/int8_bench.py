@@ -1,7 +1,7 @@
 """The int8 convolution kernel at the int8 path's shapes, on the card.
 
     python -m mvfnet_tpu_torch.tools.int8_bench \\
-        [--variant NAME=@FILE.cu]... [--tile-n N]... [--check-n N] \\
+        [--variant NAME=@FILE.cu]... [--gather] [--check-n N] \\
         [--shapes I,J,...] [--out OUT.json]
 
 For each shape of ``PHASE12_SHAPES`` (every shape phase 12 of
@@ -24,10 +24,10 @@ Each ``--variant`` (another build of a kernel source, such as an older
 commit's ``int8_conv.cu`` unpacked from ``git archive``) is checked and
 timed beside the committed kernel on the same operands; a source without
 ``int8_conv_abi`` (the first kernel, which gathered any Cin) takes them
-unpadded. ``--tile-n`` times the committed kernel at other tile widths, ``--gather``
-with x gathered at the shapes whose plan takes it by TMA.
-Every variant is compiled at once, before the first shape. Medians of CUDA
-events around launches queued back to back. Prints one compact
+unpadded, one without a path of x the plan takes gathers x. ``--gather``
+times the committed kernel with x gathered where its plan takes x by
+TMA. Every variant is compiled at once, before the first shape. Medians
+of CUDA events around launches queued back to back. Prints one compact
 ``int8 bench:`` line per shape and the card's name and power limit, and
 writes the full records to ``--out``.
 """
@@ -259,16 +259,14 @@ def _legacy_launch(x, wp, key, scale, bias, out_dtype):
         q8._EPILOGUE[epi], None)
 
 
-def prepared(lib, x, wq, key, scale=None, bias=None, out_dtype=None,
-             tile_n=None):
+def prepared(lib, x, wq, key, scale=None, bias=None, out_dtype=None):
     """One launch's operands for ``lib`` (None: the committed kernel); a
     build that does not take the plan's path for x gathers it."""
     wp = q8.pack_weight(wq)
     if lib is not None and is_legacy(lib):
         return _legacy_launch(x, wp, key, scale, bias, out_dtype)
     padding, _ = _geometry(key)
-    op = q8.prepare(x, wp, key[7], padding, key[9], scale, bias, out_dtype,
-                    tile_n)
+    op = q8.prepare(x, wp, key[7], padding, key[9], scale, bias, out_dtype)
     if lib is not None:
         paths = (lib.int8_conv_a_paths()
                  if hasattr(lib, 'int8_conv_a_paths') else 0x3)
@@ -330,8 +328,8 @@ def bf16_ms(key):
     return median_ms(lambda: F.conv3d(xb, wb, None, stride, pad, dil))
 
 
-def shape_record(key, seed, variants=None, tile_ns=(), check_n=16,
-                 plain=False, gather=False):
+def shape_record(key, seed, variants=None, check_n=16, plain=False,
+                 gather=False):
     """The committed kernel at one shape (and each of ``variants``,
     ``{name: library}``); see the module's docstring. ``plain`` adds the
     plain version's time at the full shape; ``gather`` the kernel's time
@@ -360,12 +358,6 @@ def shape_record(key, seed, variants=None, tile_ns=(), check_n=16,
             og.dims[22] = 0
             rec['gather_ms'] = median_ms(lambda: q8.launch(og))
             del og
-        rec['tile_ms'] = {}
-        for bn in tile_ns:
-            if bn != op.plan.tile_n:
-                alt = prepared(None, x, wq, key, *eargs, tile_n=bn)
-                rec['tile_ms'][bn] = median_ms(lambda: q8.launch(alt))
-                del alt
         for name, lib in variants.items():
             eq, _ = equal_to_plain(lib, x[:check_n], wq, key, scale, bias)
             vop = prepared(lib, x, wq, key, *eargs)
@@ -421,7 +413,6 @@ def build_variants(specs, out_dir):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--variant', action='append', default=[])
-    ap.add_argument('--tile-n', type=int, action='append', default=[])
     ap.add_argument('--check-n', type=int, default=16)
     ap.add_argument('--gather', action='store_true',
                     help='also time the TMA shapes with x gathered')
@@ -448,13 +439,13 @@ def main(argv=None):
     records = []
     for i in picks:
         key = PHASE12_SHAPES[i]
-        rec = shape_record(key, 1000 + i, variants, args.tile_n,
-                           args.check_n, gather=args.gather)
+        rec = shape_record(key, 1000 + i, variants, args.check_n,
+                           gather=args.gather)
         records.append(rec)
         short = {k: rec[k] for k in ('case', 'variant', 'tile_n', 'equal',
                                      'ms', 'ms_int32', 'wrapper_ms',
                                      'library_ms', 'bf16_ms', 'bound_ms',
-                                     'share_of_bound', 'tile_ms')}
+                                     'share_of_bound')}
         if 'gather_ms' in rec:
             short['gather_ms'] = rec['gather_ms']
         short['variants'] = {n: [v['equal'], v['ms'], v['wrapper_ms']]
