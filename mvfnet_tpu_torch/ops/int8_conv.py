@@ -8,7 +8,8 @@ the split conv1 and the space-to-depth stem of
 ``mvfnet_tpu/models/backbones/resnet.py``). PyTorch has no int8 convolution
 on CUDA, so the port computes it in a hand-written kernel,
 ``csrc/int8_conv.cu`` (an implicit GEMM on ``wgmma`` s8 tensor cores: x by
-TMA where it is the im2col matrix, a 1x1 stride-1 conv, else gathered).
+TMA where it is the im2col matrix, a 1x1 stride-1 conv, or where a box of
+it a tap makes a tile, else gathered).
 ``plan`` chooses the kernel's variant and tile width per shape and
 zero-pads Cin to a multiple of 16; the quantized modules hand the weight
 over in the kernel's layout (``int8_conv_packed``).
