@@ -41,9 +41,12 @@
 // - int8_conv_tma, for a 1x1 stride-1 unpadded conv, where x is the
 //   im2col matrix itself (most of the flagship's launches, all of them
 //   bound by bytes), and for a conv whose 128-pixel tiles are whole output
-//   rows or images with Cin a multiple of 128 (R50's 3x3 convs and strided
-//   shortcuts from layer2 on), where a stage's A tile is one box of x at a
-//   tap's offset, strided as the conv is, zeros in the padding: a
+//   rows or images with Cin a multiple of 64 (R50's 3x3 convs and strided
+//   shortcuts, I3D's 1x3x3), where a stage's A tile is one box of x at a
+//   tap's offset, strided as the conv is, zeros in the padding (stages of
+//   64 bytes of K in the 64-byte swizzle where Cin is an odd multiple of
+//   64, so that a stage lies in one tap, or where they leave less of the
+//   last stage empty): a
 //   persistent block per SM, one producer thread that streams A's and B's
 //   tiles by tiled TMA into a ring of 3-8 stages (as many as shared memory
 //   holds) on full/empty mbarriers, running ahead across tiles, and two
@@ -81,13 +84,14 @@ constexpr int kGatherStages = 4;  // at most
 constexpr int kConsumers = 2;
 constexpr int kTmaThreads = 128 * kConsumers + 32;
 
-// The TMA kernel's ring: stages of A (128 x 128 bytes) and B (BN x 128),
-// as many as fit (up to 8) beside the barriers and the consumers' staging
-// buffers of kCols columns: 7-8 stages at BN 64, 4-5 at 128, 3 at 256.
-template <int BN, typename Out>
+// The TMA kernel's ring: stages of KB bytes of K (128, or 64 where Cin is
+// an odd multiple of 64) for A (128 rows) and B (BN rows), as many as fit
+// (up to 8) beside the barriers and the consumers' staging buffers of
+// kCols columns: at KB 128, 7-8 stages at BN 64, 4-5 at 128, 3 at 256.
+template <int BN, int KB, typename Out>
 struct Ring {
-  static constexpr int kA = kBM * kBK;
-  static constexpr int kStage = kA + BN * kBK;
+  static constexpr int kA = kBM * KB;
+  static constexpr int kStage = kA + BN * KB;
   static constexpr int kCols = BN < 128 ? BN : 128;   // staged at a time
   static constexpr int kStaged =
       kConsumers * 64 * (kCols + kRowPad) * static_cast<int>(sizeof(Out));
@@ -143,13 +147,16 @@ __device__ __forceinline__ int swizzle(int row, int chunk) {
   return row * 128 + ((chunk ^ (row & 7)) << 4);
 }
 
-// wgmma matrix descriptor of a K-major operand in that layout: start
-// address >> 4, leading byte offset 1 (unused when K is swizzled), stride
-// byte offset 1024 >> 4 (from one group of 8 rows to the next), layout
-// 128-byte swizzle. A k32 step adds 32 bytes to the start address.
+// wgmma matrix descriptor of a K-major operand in that layout, or in the
+// 64-byte swizzle of rows of KB = 64 bytes: start address >> 4, leading
+// byte offset 1 (unused when K is swizzled), stride byte offset 8 KB >> 4
+// (from one group of 8 rows to the next), layout 128-byte (1) or 64-byte
+// (2) swizzle. A k32 step adds 32 bytes to the start address.
+template <int KB = kBK>
 __device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
-         (64ull << 32) | (1ull << 62);
+         (static_cast<uint64_t>(8 * KB >> 4) << 32) |
+         (static_cast<uint64_t>(KB == 128 ? 1 : 2) << 62);
 }
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
@@ -609,7 +616,7 @@ __global__ void __launch_bounds__(kGatherThreads, 1)
 // The TMA kernel, for a conv whose A tiles TMA can copy: a 1x1 stride-1
 // unpadded conv, whose im2col matrix is x itself (`taps` 0: a 2-D map of
 // M x Cin), or one where a tile's 128 pixels are whole rows of an image
-// or whole images and a stage's 128 bytes of K lie in one tap (`taps` 1:
+// or whole images and a stage's bytes of K lie in one tap (`taps` 1:
 // a 4-D map of x, one box a stage at the tap's offset, strided along W
 // and H as the conv is, zeros in the padding). A persistent block walks
 // output tiles b, b + gridDim.x, ...; tile i is (i / n_tiles, i %
@@ -622,7 +629,7 @@ __global__ void __launch_bounds__(kGatherThreads, 1)
 // before; after a tile's last stage it stages its rows in its own buffer,
 // kCols columns at a time, and writes them out while the producer already
 // fills the ring for the next tile.
-template <int BN, int EPI>
+template <int BN, int KB, int EPI>
 __global__ void __launch_bounds__(kTmaThreads, 1)
     int8_conv_tma(const __grid_constant__ CUtensorMap map_a,
                   const __grid_constant__ CUtensorMap map_b, ConvShape s,
@@ -630,7 +637,7 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
                   const float* __restrict__ bias, int n_tiles,
                   long long tiles, int taps) {
   using Out = typename OutType<EPI>::T;
-  using R = Ring<BN, Out>;
+  using R = Ring<BN, KB, Out>;
   constexpr int kCols = R::kCols;
   extern __shared__ uint8_t smem_raw[];
   // the barriers, then (1024-byte aligned) the ring, then the staging
@@ -639,7 +646,7 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
   const uint32_t full = smem_addr(smem), empty = full + 8 * R::kStages;
   const uint32_t ring = full + 1024;
   const int tid = threadIdx.x, wg = tid >> 7;
-  const int nk = (s.k + kBK - 1) / kBK;
+  const int nk = (s.k + KB - 1) / KB;
   if (tid == 0) {
     for (int i = 0; i < R::kStages; ++i) {
       mbar_init(full + 8 * i, 1);                 // the producer's expect_tx
@@ -663,13 +670,13 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
         const uint32_t a = ring + slot * R::kStage, bar = full + 8 * slot;
         mbar_wait(empty + 8 * slot, ((st / R::kStages) & 1) ^ 1);
         mbar_expect_tx(bar, R::kStage);
-        tma_load(a + R::kA, &map_b, kt * kBK, n_base, bar);
+        tma_load(a + R::kA, &map_b, kt * KB, n_base, bar);
         if (taps) {
-          const int tap = kt * kBK / s.cin, c0 = kt * kBK - tap * s.cin;
+          const int tap = kt * KB / s.cin, c0 = kt * KB - tap * s.cin;
           tma_load4(a, &map_a, c0, tap % s.kw * s.dw - s.pw,
                     row * s.sh - s.ph + tap / s.kw * s.dh, image, bar);
         } else {
-          tma_load(a, &map_a, kt * kBK, m_base, bar);
+          tma_load(a, &map_a, kt * KB, m_base, bar);
         }
       }
     }
@@ -689,12 +696,13 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
     for (int kt = 0; kt < nk; ++kt, ++st) {
       const int slot = st % R::kStages;
       mbar_wait(full + 8 * slot, (st / R::kStages) & 1);
-      const uint32_t a = ring + slot * R::kStage + wg * 64 * kBK;
+      const uint32_t a = ring + slot * R::kStage + wg * 64 * KB;
       const uint32_t b = ring + slot * R::kStage + R::kA;
       wgmma_fence();
 #pragma unroll
-      for (int ks = 0; ks < kBK / 32; ++ks)
-        wgmma_s8<BN>(acc, smem_desc(a + ks * 32), smem_desc(b + ks * 32));
+      for (int ks = 0; ks < KB / 32; ++ks)
+        wgmma_s8<BN>(acc, smem_desc<KB>(a + ks * 32),
+                     smem_desc<KB>(b + ks * 32));
       wgmma_commit();
       wgmma_wait1();                     // stage kt - 1's products are done
       if (kt > 0 && lane == 0)
@@ -740,21 +748,26 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
+// The swizzle of rows of kb (128 or 64) bytes.
+CUtensorMapSwizzle swizzle_of(int kb) {
+  return kb == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+}
+
 // A row-major int8 matrix (rows x cols, rows `ld` bytes apart) in boxes of
-// box_rows x 128 bytes, 128-byte swizzled; zeros past its edges.
+// box_rows x kb bytes, swizzled; zeros past its edges.
 bool tensor_map(CUtensorMap* map, const void* base, long long rows,
-                int cols, long long ld, int box_rows) {
+                int cols, long long ld, int box_rows, int kb) {
   const EncodeTiled encode = encode_tiled();
   if (!encode) return false;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
                               static_cast<cuuint64_t>(rows)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld)};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(kBK),
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(kb),
                              static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t elem[2] = {1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
                 const_cast<void*>(base), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle_of(kb),
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -785,10 +798,10 @@ int launch_gather(const ConvShape& s, const int8_t* x, const int8_t* w,
   return static_cast<int>(cudaGetLastError());
 }
 
-// x (N*T images of H x W x Cin) in boxes of 128 bytes of Cin x Wo x rows
-// x images, strided along W and H by the conv's strides: a tile of 128
+// x (N*T images of H x W x Cin) in boxes of kb bytes of Cin x Wo x rows x
+// images, strided along W and H by the conv's strides: a tile of 128
 // output pixels for one tap. Zeros outside x.
-bool taps_map(CUtensorMap* map, const void* x, const ConvShape& s) {
+bool taps_map(CUtensorMap* map, const void* x, const ConvShape& s, int kb) {
   const EncodeTiled encode = encode_tiled();
   const int hw = s.ho * s.wo;
   int rows, images;
@@ -810,7 +823,7 @@ bool taps_map(CUtensorMap* map, const void* x, const ConvShape& s) {
       static_cast<cuuint64_t>(s.cin),
       static_cast<cuuint64_t>(s.w) * s.cin,
       static_cast<cuuint64_t>(s.h) * s.w * s.cin};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(kBK),
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(kb),
                              static_cast<cuuint32_t>(s.wo * s.sw),
                              static_cast<cuuint32_t>(rows * s.sh),
                              static_cast<cuuint32_t>(images)};
@@ -818,24 +831,24 @@ bool taps_map(CUtensorMap* map, const void* x, const ConvShape& s) {
                               static_cast<cuuint32_t>(s.sh), 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, const_cast<void*>(x),
                 dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                swizzle_of(kb), CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int BN, int EPI>
-int launch_tma(const ConvShape& s, const int8_t* x, const int8_t* w,
-               void* out, const float* scale, const float* bias, int taps,
-               cudaStream_t stream) {
+template <int BN, int KB, int EPI>
+int launch_tma_kb(const ConvShape& s, const int8_t* x, const int8_t* w,
+                  void* out, const float* scale, const float* bias, int taps,
+                  cudaStream_t stream) {
   using Out = typename OutType<EPI>::T;
-  const int bytes = Ring<BN, Out>::kBytes;
-  auto kernel = int8_conv_tma<BN, EPI>;
+  const int bytes = Ring<BN, KB, Out>::kBytes;
+  auto kernel = int8_conv_tma<BN, KB, EPI>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   alignas(64) CUtensorMap map_a{}, map_b{};
-  if (!tensor_map(&map_b, w, s.cout, s.k, s.k, BN) ||
-      !(taps ? taps_map(&map_a, x, s)
-             : tensor_map(&map_a, x, s.m, s.cin, s.cin, kBM)))
+  if (!tensor_map(&map_b, w, s.cout, s.k, s.k, BN, KB) ||
+      !(taps ? taps_map(&map_a, x, s, KB)
+             : tensor_map(&map_a, x, s.m, s.cin, s.cin, kBM, KB)))
     return static_cast<int>(cudaErrorInvalidValue);
   int device = 0, sms = 0;
   if ((err = cudaGetDevice(&device)) != cudaSuccess ||
@@ -848,6 +861,21 @@ int launch_tma(const ConvShape& s, const int8_t* x, const int8_t* w,
   kernel<<<grid, kTmaThreads, bytes, stream>>>(map_a, map_b, s, out, scale,
                                                bias, n_tiles, tiles, taps);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Stages of 128 bytes of K, or of 64: where a tap's Cin is an odd
+// multiple of 64 (a stage lies in one tap), or where 64-byte stages leave
+// less of the last one empty (K % 128 in 1-64: Cin 48, 64, 192 at 1x1).
+template <int BN, int EPI>
+int launch_tma(const ConvShape& s, const int8_t* x, const int8_t* w,
+               void* out, const float* scale, const float* bias, int taps,
+               cudaStream_t stream) {
+  const int tail = s.k % 128;
+  return (taps ? s.cin % 128 == 0 : tail == 0 || tail > 64)
+             ? launch_tma_kb<BN, 128, EPI>(s, x, w, out, scale, bias, taps,
+                                           stream)
+             : launch_tma_kb<BN, 64, EPI>(s, x, w, out, scale, bias, taps,
+                                          stream);
 }
 
 // a_path: 0 gather, 1 TMA of x as a matrix, 2 TMA of x a tap a stage
@@ -876,15 +904,10 @@ extern "C" {
 // any Cin).
 int int8_conv_abi(void) { return 2; }
 
-// The paths of x this build takes, a bit each (dims[22]: 0 gather, 1 TMA
-// as a matrix, 2 TMA a tap a box); a build without this function takes
-// 0 and 1.
-int int8_conv_a_paths(void) { return 0x7; }
-
 // dims: n t h w cin, to ho wo cout, kt kh kw, st sh sw, pt ph pw, dt dh dw,
 // then the tile width BN (64, 128 or 256) and x's path: 0 gathered, 1 by
 // TMA as a matrix (a 1x1 stride-1 conv without padding), 2 by TMA a tap a
-// stage (kt 1, no temporal stride or padding, Cin a multiple of 128, 128
+// stage (kt 1, no temporal stride or padding, Cin a multiple of 64, 128
 // output pixels whole rows or whole images) (23 ints). Cin must be a
 // multiple of 16 and x and w 16-byte aligned. Returns the launch's
 // cudaError_t.
@@ -904,7 +927,7 @@ int int8_conv_launch(const void* x, const void* w, void* out,
   const int a_path = dims[22];
   const bool plain = s.kt * s.kh * s.kw == 1 && s.st * s.sh * s.sw == 1 &&
                      s.pt + s.ph + s.pw == 0;
-  const bool taps = s.kt == 1 && s.st == 1 && s.pt == 0 && s.cin % 128 == 0;
+  const bool taps = s.kt == 1 && s.st == 1 && s.pt == 0 && s.cin % 64 == 0;
   if (s.cin % 16 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(w) % 16 != 0 || a_path < 0 ||
       a_path > 2 || (a_path == 1 && !plain) || (a_path == 2 && !taps))

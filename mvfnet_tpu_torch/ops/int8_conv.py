@@ -182,15 +182,16 @@ def taps_box(cin: int, kernel: Triple, stride: Triple,
              padding: Sequence[Tuple[int, int]],
              out: Sequence[int]) -> Optional[Tuple[int, int]]:
     """``(rows, images)`` of the box of x (channels last, frames as images)
-    that holds one tap's 128 bytes of Cin for 128 consecutive output
-    pixels, ``rows`` output rows of ``images`` images, or None where there
-    is none: the conv must move in H and W only (kt = 1, no temporal
-    stride or padding), Cin a multiple of 128 (a stage's 128 bytes of K in
-    one tap), and 128 pixels whole rows of one image or whole images; a
-    box spans at most 256 elements of x along an axis."""
+    that holds one tap's stage of Cin (128 bytes, or 64 where Cin is an odd
+    multiple of 64) for 128 consecutive output pixels, ``rows`` output
+    rows of ``images`` images, or None where there is none: the conv must
+    move in H and W only (kt = 1, no temporal stride or padding), Cin a
+    multiple of 64 (a stage in one tap), and 128 pixels whole rows of one
+    image or whole images; a box spans at most 256 elements of x along an
+    axis."""
     to, ho, wo = out
     if (kernel[0] != 1 or stride[0] != 1 or tuple(padding[0]) != (0, 0)
-            or cin % 128):
+            or cin % 64):
         return None
     if ho * wo % 128 == 0 and 128 % wo == 0:
         rows, images = 128 // wo, 1

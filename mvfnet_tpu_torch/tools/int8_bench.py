@@ -24,7 +24,7 @@ Each ``--variant`` (another build of a kernel source, such as an older
 commit's ``int8_conv.cu`` unpacked from ``git archive``) is checked and
 timed beside the committed kernel on the same operands; a source without
 ``int8_conv_abi`` (the first kernel, which gathered any Cin) takes them
-unpadded, one without a path of x the plan takes gathers x. ``--gather``
+unpadded, one that refuses the plan's path of x gathers x. ``--gather``
 times the committed kernel with x gathered where its plan takes x by
 TMA. Every variant is compiled at once, before the first shape. Medians
 of CUDA events around launches queued back to back. Prints one compact
@@ -259,23 +259,21 @@ def _legacy_launch(x, wp, key, scale, bias, out_dtype):
         q8._EPILOGUE[epi], None)
 
 
-def prepared(lib, x, wq, key, scale=None, bias=None, out_dtype=None):
-    """One launch's operands for ``lib`` (None: the committed kernel); a
-    build that does not take the plan's path for x gathers it."""
+def prepared(lib, x, wq, key, scale=None, bias=None, out_dtype=None,
+             gather=False):
+    """One launch's operands for ``lib`` (None: the committed kernel),
+    x gathered if ``gather``."""
     wp = q8.pack_weight(wq)
     if lib is not None and is_legacy(lib):
         return _legacy_launch(x, wp, key, scale, bias, out_dtype)
     padding, _ = _geometry(key)
     op = q8.prepare(x, wp, key[7], padding, key[9], scale, bias, out_dtype)
-    if lib is not None:
-        paths = (lib.int8_conv_a_paths()
-                 if hasattr(lib, 'int8_conv_a_paths') else 0x3)
-        if not paths >> op.dims[22] & 1:
-            op.dims[22] = 0
+    if gather:
+        op.dims[22] = q8.A_PATH['gather']
     return op
 
 
-def equal_to_plain(lib, x, wq, key, scale, bias):
+def equal_to_plain(lib, x, wq, key, scale, bias, gather=False):
     """``(equal, max abs int32 error)``: int32, bf16 + bias and f32 (no
     bias) against the plain version."""
     padding, _ = _geometry(key)
@@ -283,7 +281,7 @@ def equal_to_plain(lib, x, wq, key, scale, bias):
     equal, err = True, 0.0
     for sc, bi, dt in ((None, None, None), (scale, bias, torch.bfloat16),
                        (scale, None, torch.float32)):
-        got = q8.launch(prepared(lib, x, wq, key, sc, bi, dt), lib)
+        got = q8.launch(prepared(lib, x, wq, key, sc, bi, dt, gather), lib)
         want = q8.int8_conv_plain(x, wq, *args, sc, bi, dt)
         equal &= torch.equal(got, want)
         if dt is None:
@@ -354,17 +352,25 @@ def shape_record(key, seed, variants=None, check_n=16, plain=False,
         rec['wrapper_ms'] = median_ms(lambda: q8.launch(q8.prepare(
             x, wp, *args, *eargs)))
         if gather and 'tma' in op.plan.variant:
-            og = prepared(None, x, wq, key, *eargs)
-            og.dims[22] = 0
+            og = prepared(None, x, wq, key, *eargs, gather=True)
             rec['gather_ms'] = median_ms(lambda: q8.launch(og))
             del og
         for name, lib in variants.items():
-            eq, _ = equal_to_plain(lib, x[:check_n], wq, key, scale, bias)
-            vop = prepared(lib, x, wq, key, *eargs)
+            # an older build refuses a path of x it does not have: gather
+            gathered = False
+            try:
+                eq, _ = equal_to_plain(lib, x[:check_n], wq, key, scale,
+                                       bias)
+            except RuntimeError:
+                gathered = True
+                eq, _ = equal_to_plain(lib, x[:check_n], wq, key, scale,
+                                       bias, gather=True)
+            vop = prepared(lib, x, wq, key, *eargs, gather=gathered)
             rec.setdefault('variants', {})[name] = dict(
-                equal=eq, ms=median_ms(lambda: q8.launch(vop, lib)),
+                equal=eq, gathered=gathered,
+                ms=median_ms(lambda: q8.launch(vop, lib)),
                 wrapper_ms=median_ms(lambda: q8.launch(prepared(
-                    lib, x, wq, key, *eargs), lib)))
+                    lib, x, wq, key, *eargs, gather=gathered), lib)))
             del vop
         del op
         rec['library_ms'], note = library_ms(key, x, wq)
@@ -404,8 +410,6 @@ def build_variants(specs, out_dir):
         for fn, (argtypes, restype) in q8._SIGNATURES.items():
             getattr(lib, fn).argtypes = list(argtypes)
             getattr(lib, fn).restype = restype
-        if hasattr(lib, 'int8_conv_a_paths'):
-            lib.int8_conv_a_paths.restype = ctypes.c_int
         libs[name] = lib
     return libs
 

@@ -442,7 +442,7 @@ def test_i3d_on_the_card_matches_fp32_cpu_and_launches_no_kernel(cuda):
 # 32 and 112), a 2-D stride-2 1x1, and tile widths 64 and 128 on the TMA
 # path; then x a tap a box by TMA: a 3x3 whose tiles are 8 output rows, a
 # stride-2 3x3 whose tiles are two images with a ragged last tile, a 1x3x3
-# over frames, and a dilated 3x3
+# over frames, a dilated 3x3, and 64-byte stages at Cin 64 and 192
 INT8_SHAPES = [
     ((2, 1, 16, 16, 64), (1, 1, 1, 256), (1, 1, 1), ((0, 0),) * 3,
      (1, 1, 1)),
@@ -488,6 +488,10 @@ INT8_SHAPES = [
      ((0, 0), (1, 1), (1, 1)), (1, 1, 1)),
     ((1, 1, 16, 16, 128), (1, 3, 3, 96), (1, 1, 1),
      ((0, 0), (2, 2), (2, 2)), (1, 2, 2)),
+    ((2, 1, 16, 16, 64), (1, 3, 3, 64), (1, 1, 1),
+     ((0, 0), (1, 1), (1, 1)), (1, 1, 1)),
+    ((1, 2, 8, 8, 192), (1, 3, 3, 64), (1, 1, 1),
+     ((0, 0), (1, 1), (1, 1)), (1, 1, 1)),
 ]
 
 

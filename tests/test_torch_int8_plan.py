@@ -30,7 +30,7 @@ CARD_PLANS = [
     ('gather', 512, 128), ('padded_tma', 32, 64), ('padded_tma', 112, 64),
     ('tma_taps', 256, 256), ('tma', 256, 64), ('tma', 64, 128),
     ('tma_taps', 128, 64), ('tma_taps', 256, 128), ('tma_taps', 128, 256),
-    ('tma_taps', 128, 128),
+    ('tma_taps', 128, 128), ('tma_taps', 64, 64), ('tma_taps', 192, 64),
 ]
 
 
@@ -54,7 +54,7 @@ def test_card_tests_cover_every_variant_and_tile_width():
 def test_plan_of_each_phase12_shape(key):
     """TMA of x as a matrix exactly where x is the im2col matrix (1x1,
     stride 1, no padding); a tap a box where the conv moves in H and W
-    only, Cin is a multiple of 128 and 128 output pixels are whole rows
+    only, Cin is a multiple of 64 and 128 output pixels are whole rows
     or images; Cin padded to the next multiple of 16; the narrowest tile
     that covers Cout (256 above it)."""
     nb, t, h, w, cin, cout, kernel, stride, pad, dil, epi = key
@@ -64,7 +64,7 @@ def test_plan_of_each_phase12_shape(key):
     ho = (h + 2 * pad[1] - dil[1] * (kernel[1] - 1) - 1) // stride[1] + 1
     wo = (w + 2 * pad[2] - dil[2] * (kernel[2] - 1) - 1) // stride[2] + 1
     taps = (not plain and kernel[0] == 1 and stride[0] == 1 and
-            pad[0] == 0 and cin % 128 == 0 and
+            pad[0] == 0 and cin % 64 == 0 and
             (ho * wo % 128 == 0 and 128 % wo == 0 or 128 % (ho * wo) == 0))
     assert p.variant.replace('padded_', '') == (
         'tma' if plain else 'tma_taps' if taps else 'gather')
@@ -209,14 +209,15 @@ def test_quant_modules_hand_over_the_packed_weight(kind, monkeypatch):
     (256, (1, 3, 3), (1, 2, 2), (0, 1, 1), (1, 8, 8), (8, 2)),
     (512, (1, 1, 1), (1, 2, 2), (0, 0, 0), (1, 4, 4), (4, 8)),
     (128, (1, 3, 3), (1, 1, 1), (0, 1, 1), (1, 12, 12), None),
-    (64, (1, 3, 3), (1, 1, 1), (0, 1, 1), (1, 32, 32), None),
+    (64, (1, 3, 3), (1, 1, 1), (0, 1, 1), (1, 64, 64), (2, 1)),
+    (96, (1, 3, 3), (1, 1, 1), (0, 1, 1), (1, 32, 32), None),
     (128, (3, 3, 3), (1, 1, 1), (1, 1, 1), (4, 8, 8), None),
     (128, (1, 3, 3), (2, 1, 1), (0, 1, 1), (2, 8, 8), None),
     (128, (1, 1, 3), (1, 1, 1), (0, 0, 1), (1, 1, 512), None),
 ])
 def test_taps_box(cin, kernel, stride, padding, out, box):
     """``(rows, images)`` where 128 output pixels are whole rows or whole
-    images of a conv that moves in H and W only with Cin % 128 == 0, and
+    images of a conv that moves in H and W only with Cin % 64 == 0, and
     the box spans at most 256 elements along an axis; else None."""
     assert q8.taps_box(cin, kernel, stride, tuple((p, p) for p in padding),
                        out) == box
