@@ -53,13 +53,13 @@
 //   consumer warpgroups that keep one stage of wgmma in flight, then stage
 //   and write their rows while the producer fills the ring for the next
 //   tile.
-// - int8_conv_gather, for every other conv (layer1's 3x3 at Cin 64, 3-D
-//   kernels, odd sizes): all 256 threads gather A's im2col rows (and B's
-//   rows) per 16-byte piece with cp.async, zero-filled outside the image
-//   and past K, into their swizzled addresses, a ring of up to four stages
-//   kept three ahead. The gather's throughput grows with the threads that
-//   issue it: a single producer warpgroup gathering for two consumers ran
-//   these shapes at half this kernel's speed.
+// - int8_conv_gather, for every other conv (temporal kernels, Cin not a
+//   multiple of 64, odd map sizes): all 256 threads gather A's im2col
+//   rows (and B's rows) per 16-byte piece with cp.async, zero-filled
+//   outside the image and past K, into their swizzled addresses, a ring
+//   of up to four stages kept three ahead. The gather's throughput grows
+//   with the threads that issue it: a single producer warpgroup gathering
+//   for two consumers ran these shapes at half this kernel's speed.
 //
 // Built by nvcc into a shared library with a plain C interface, loaded by
 // mvfnet_tpu_torch/ops/_cuda.py through ctypes.
