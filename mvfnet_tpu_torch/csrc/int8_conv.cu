@@ -58,7 +58,7 @@
 //   rows (and B's rows) per 16-byte piece with cp.async, zero-filled
 //   outside the image and past K, into their swizzled addresses, a ring
 //   of up to four stages kept three ahead. The gather's throughput grows
-//   with the threads that issue it: a single producer warpgroup gathering
+//   with the threads that run it: a single producer warpgroup gathering
 //   for two consumers ran these shapes at half this kernel's speed.
 //
 // Built by nvcc into a shared library with a plain C interface, loaded by
@@ -657,7 +657,7 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
   __syncthreads();
 
   if (wg == kConsumers) {
-    if (tid != 128 * kConsumers) return;   // one thread issues
+    if (tid != 128 * kConsumers) return;   // one thread starts the copies
     int st = 0;
     for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
       const int m_base = static_cast<int>(tile / n_tiles) * kBM;
@@ -730,7 +730,7 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
                                  CUtensorMapFloatOOBfill);
 
-// The driver's cuTensorMapEncodeTiled, through the runtime (no -lcuda).
+// cuTensorMapEncodeTiled, looked up through the runtime (no -lcuda).
 EncodeTiled encode_tiled() {
   static const EncodeTiled fn = [] {
     void* p = nullptr;
