@@ -165,12 +165,34 @@ Phases, each of which exits non-zero on failure:
    dense video's device time, one view against the fp32 CPU forward
    (``int8:``, ``int8 kernel:``, ``family12:`` lines).
 
+13. the native decode worker and the Orbax step directories, on phase 5's
+   frames: (a) a census of nvJPEG (version, backend), libzstd and
+   zstandard (looked up, not imported); (b) nvJPEG (with the ycc_to_bgr
+   kernel) against cv2.imdecode on every frame of the set and on the JPEG
+   kinds of ``tools/jpeg_kinds.py`` (4:2:0, 4:4:4, 4:2:2, grayscale, odd
+   size, restart markers, progressive): max and mean absolute difference,
+   the share of values that differ, within the card tests' bounds, and a
+   video's batch equal to its single decodes; (c) decode ms a frame:
+   nvJPEG batched, cv2 on one thread, and the 4-thread loader with each;
+   (d) the test CLI with host and with device normalization, each on
+   nvJPEG frames and on cv2 frames (``FrameSelector(use_native=False)``):
+   videos/s, device ms a video, idle share, the frames each decoder gave
+   (none to cv2 on nvJPEG), 2 + 3 fused launches a video, probabilities
+   within 3e-2 of the largest of the cv2 run's; (e) the flagship's state
+   after two train steps through ``save_checkpoint_orbax`` and
+   ``load_checkpoint_orbax``: weights and momentum bit for bit, seconds and
+   MB; (f) the committed JAX-written Orbax fixture
+   (``tests/golden/orbax``) equal to its ``.msgpack`` twin bit for bit
+   (``decode:``, ``decode_cli:`` and ``orbax:`` lines).
+
 Prints the ``{"kernels": [...]}`` line (launches of the fused kernel per
 shape in phases 3, 5, 6 and 7, per rank in phase 8's cases as
 ``launches_dist``, per case in phase 9 as ``launches_video``, in phase
-10 as ``launches_3d``, in phase 11 as ``launches_2d`` and in phase 12 as
-``launches_int8``; then one record per shape of the int8 kernel, its
-``launches`` those of phase 12's timed calls), the card's name and power
+10 as ``launches_3d``, in phase 11 as ``launches_2d``, in phase 12 as
+``launches_int8`` and in phase 13 as ``launches_decode``; then one record
+per shape of the int8 kernel, its ``launches`` those of phase 12's timed
+calls; then the ycc_to_bgr kernel's, its ``launches`` those of phase 13
+(d)'s device-normalization run on nvJPEG), the card's name and power
 limit,
 and last ``{"ok": true, "device": {...}}``. Without CUDA, or without the
 repository beside it, it exits non-zero and prints no result.
@@ -328,6 +350,19 @@ NEW_3D = {
 KERNEL = dict(name='fused_bottleneck', route='cuda',
               source='mvfnet_tpu_torch/csrc/fused_bottleneck.cu',
               replaces='mvfnet_tpu/ops/fused_block.py:144')
+# phase 13: nvJPEG against cv2 (tests/test_torch_native_io.py's bounds:
+# mean absolute difference a value, and the largest: the IDCTs round apart
+# by 1 a sample, which B = Y + 1.772 (Cb - 128) turns into at most 3); the
+# CLI's probabilities on nvJPEG frames against cv2 frames, relative to the
+# largest; the committed JAX-written Orbax fixture and its step. The
+# ycc_to_bgr kernel replaces no TPU kernel: the JAX package's native worker
+# converts to BGR in libjpeg (the line named)
+DECODE_MEAN_ABS, DECODE_MAX_ABS = 1.0, 3
+DECODE_TOL = 3e-2
+GOLDEN_ORBAX, GOLDEN_STEP = os.path.join(ROOT, 'tests', 'golden'), 7
+YCC_KERNEL = dict(name='ycc_to_bgr', route='cuda',
+                  source='mvfnet_tpu_torch/csrc/nvjpeg_decode.cu',
+                  replaces='native/jpeg_decoder.cpp:61')
 
 
 class SmokeFailure(Exception):
@@ -367,18 +402,20 @@ def median_ms(fn, runs=TIMED_RUNS, warmup=3):
 
 
 def phase_build():
-    """Both kernels' sources compiled at once (one nvcc each), then
+    """The three CUDA sources compiled at once (one nvcc each), then
     loaded."""
     from concurrent.futures import ThreadPoolExecutor
+    from mvfnet_tpu_torch.data import native_io
     from mvfnet_tpu_torch.ops import _cuda
     from mvfnet_tpu_torch.ops import fused_block as fb
     from mvfnet_tpu_torch.ops import int8_conv as q8
+    sources = ('fused_bottleneck', 'int8_conv', 'nvjpeg_decode')
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        list(pool.map(_cuda._build, ('fused_bottleneck', 'int8_conv')))
-    libs = [fb.library(), q8.library()]
+    with ThreadPoolExecutor(len(sources)) as pool:
+        list(pool.map(_cuda._build, sources))
+    libs = [fb.library(), q8.library(), native_io.library()]
     secs = time.perf_counter() - t0
-    for name in ('fused_bottleneck', 'int8_conv'):
+    for name in sources:
         for line in _cuda.build_logs.get(name, '').splitlines():
             if 'registers' in line or 'Compiling' in line or 'spill' in line:
                 print(f'nvcc {name}: {line.strip()}')
@@ -802,6 +839,22 @@ def host_census():
     out['nvjpeg.h'] = os.path.exists('/usr/local/cuda/include/nvjpeg.h')
     out['libjpeg'] = ctypes.util.find_library('jpeg')
     out['libnvjpeg'] = ctypes.util.find_library('nvjpeg')
+    # the worker's nvJPEG (built in phase 1), and what the Orbax reader
+    # does without: looked up, not imported
+    from mvfnet_tpu_torch.data import native_io
+    out['nvjpeg'] = '.'.join(map(str, native_io.nvjpeg_version()))
+    out['nvjpeg_backend'] = ('NVJPEG_BACKEND_DEFAULT (hybrid: Huffman on '
+                             'the calling thread, IDCT on the card)')
+    # nvjpegCreateEx's status for NVJPEG_BACKEND_HARDWARE (3), the JPEG
+    # engines: 0 where this machine exposes them
+    out['nvjpeg_hardware_backend_status'] = \
+        native_io.library().mvf_nvjpeg_backend_status(0, 3)
+    out['libzstd'] = ctypes.util.find_library('zstd')
+    for pkg in ('zstandard', 'orbax-checkpoint', 'tensorstore'):
+        try:
+            out[pkg] = importlib.metadata.version(pkg)
+        except importlib.metadata.PackageNotFoundError:
+            out[pkg] = None
     out['cpu_count'] = os.cpu_count()
     out['mem_gib'] = (os.sysconf('SC_PAGE_SIZE')
                       * os.sysconf('SC_PHYS_PAGES') / 2 ** 30)
@@ -853,20 +906,28 @@ def write_dataset(root):
     return ann, statistics.mean(s for v in sizes for s in v)
 
 
-def write_config(root, ann, device_norm):
+def write_config(root, ann, device_norm, use_native=True):
     """A config that inherits the flagship and overrides the test split's
     annotation file and data root and, with ``device_norm``, its
-    ``Normalize`` (the whole pipeline list, since lists replace)."""
+    ``Normalize``, without ``use_native`` its ``FrameSelector`` (cv2
+    frames on the card too; the whole pipeline list, since lists
+    replace)."""
     import re
     from mvfnet_tpu_torch.config import Config
     test = dict(ann_file=ann, data_root=root)
-    if device_norm:
-        test['pipeline'] = [
-            dict(op, device=True) if op['type'] == 'Normalize' else dict(op)
-            for op in Config.fromfile(CONFIG).data['test']['pipeline']]
+    if device_norm or not use_native:
+        ops = [dict(op) for op in Config.fromfile(CONFIG).data['test'][
+            'pipeline']]
+        for op in ops:
+            if op['type'] == 'Normalize' and device_norm:
+                op['device'] = True
+            if op['type'] == 'FrameSelector' and not use_native:
+                op['use_native'] = False
+        test['pipeline'] = ops
     text = re.sub(r'\binf\b', "float('inf')",
                   f'_base_ = {CONFIG!r}\ndata = dict(test={test!r})\n')
-    path = os.path.join(root, f'test_{int(device_norm)}.py')
+    path = os.path.join(root, f'test_{int(device_norm)}'
+                        f'{"" if use_native else "_cv2"}.py')
     with open(path, 'w') as f:
         f.write(text)
     return path
@@ -1006,7 +1067,7 @@ def phase_data(root, ann):
         # the same frames straight through the eval step, each
         # pipeline op, the collate and the pinned copy timed
         cfg = Config.fromfile(config)
-        dataset = build_dataset(dict(cfg.data['test']))
+        dataset = build_dataset(dict(cfg.data['test']), 'cuda')
         decoder = dataset_decoder(dataset)
         step = make_eval_step(model, norm_cfg=device_norm_cfg(
             cfg.data['test']['pipeline']))
@@ -1243,7 +1304,7 @@ def phase_train_cli(root):
         require('busy_ms' in prof, f'{case} train profile: {prof}')
 
         # the train split's loader alone, and each op on one thread
-        train = build_dataset(dict(cfg.data['train']))
+        train = build_dataset(dict(cfg.data['train']), 'cuda')
         loader = DataLoader(train, cfg.data['videos_per_gpu'],
                             ShardedSampler(len(train), shuffle=False),
                             num_workers=cfg.data['workers_per_gpu'],
@@ -1386,7 +1447,8 @@ def _resume_from_msgpack(root, want_losses):
     cfg.resume_from = os.path.join(root, 'train_device_norm', 'epoch_1.pth')
     model = build_recognizer(dict(cfg.model, dtype=cfg.compute_dtype),
                              test_cfg=cfg.get('test_cfg'))
-    loop = TrainLoop(model, build_dataset(dict(cfg.data['train'])), cfg)
+    loop = TrainLoop(model, build_dataset(dict(cfg.data['train']), 'cuda'),
+                     cfg)
     path = os.path.join(root, 'epoch_1.msgpack')
     save_msgpack_checkpoint(path, loop.model, loop.optimizer,
                             meta={'epoch': loop.epoch, 'iter': loop.step})
@@ -1459,7 +1521,7 @@ def _features(root, ann, ckpt):
     load_weights(model, ckpt)
     step = make_eval_step(model, norm_cfg=device_norm_cfg(
         cfg.data['test']['pipeline']))
-    dataset = build_dataset(dict(cfg.data['test']))
+    dataset = build_dataset(dict(cfg.data['test']), 'cuda')
     err, tol = 0.0, math.inf
     for i, rows in enumerate(written.values()):
         logits = step(model, dataset[i]['img_group'][None]).float()
@@ -2691,7 +2753,8 @@ def _features_3d(root, ckpt):
     load_weights(model, ckpt)
     step = make_eval_step(model, norm_cfg=device_norm_cfg(
         cfg.data['test']['pipeline']))
-    video = build_dataset(dict(cfg.data['test']))[0]['img_group'][None]
+    video = build_dataset(dict(cfg.data['test']), 'cuda')[0]['img_group'][
+        None]
     logits = step(model, video).float()
     feats = torch.tensor(np.asarray(written['video_0']),
                          device=logits.device).reshape(views, dim)
@@ -3334,7 +3397,7 @@ def _int8_flagship(root, ann, counts):
     # distribution they were calibrated on
     norm = None
     video = np.asarray(build_dataset(dict(
-        cfg.data['test'], ann_file=ann, data_root=root))[
+        cfg.data['test'], ann_file=ann, data_root=root), 'cuda')[
             INT8_CALIB_VIDEOS]['img_group'])[None]
     calib_ann = os.path.join(root, 'test_list_int8.txt')
     with open(calib_ann, 'w') as f:
@@ -3599,11 +3662,326 @@ def phase_int8(root, ann):
     return records, fused
 
 
+def _frame_paths(root, video, inds):
+    return [os.path.join(root, f'video_{video}', f'img_{t + 1:05}.jpg')
+            for t in inds]
+
+
+def _decode_compare(root, loader):
+    """(b) nvJPEG against cv2.imdecode on every frame of the set and on
+    each JPEG kind; a video's batch against its single decodes."""
+    import tempfile
+
+    import numpy as np
+    from mvfnet_tpu_torch.tools.jpeg_kinds import (compare, cv2_decode, diff,
+                                                   write_kinds)
+    stats, single_equal = [], None
+    for v in range(DATA_VIDEOS):
+        paths = _frame_paths(root, v, range(DATA_FRAMES))
+        got = loader.load_batch(paths)
+        require(got is not None, f'nvJPEG refused a frame of video_{v}')
+        stats += [diff(g, cv2_decode(p)) for p, g in zip(paths, got)]
+        if v == 0:
+            single_equal = all(np.array_equal(g, loader.load(p))
+                               for p, g in zip(paths, got))
+    with tempfile.TemporaryDirectory(dir=root) as d:
+        kinds = compare(loader, write_kinds(d))
+    frames = dict(max_abs=max(s['max_abs'] for s in stats),
+                  mean_abs=statistics.mean(s['mean_abs'] for s in stats),
+                  share_differ=statistics.mean(s['share_differ']
+                                               for s in stats))
+    print('decode: ' + json.dumps(dict(
+        compare='nvjpeg vs cv2.imdecode', frames=len(stats),
+        frame_stats=frames, video_batch_equals_single=single_equal,
+        kinds=kinds, bounds=dict(mean_abs=DECODE_MEAN_ABS,
+                                 max_abs=DECODE_MAX_ABS),
+        card=card_line())))
+    require(single_equal, 'nvJPEG: a batch differs from its single decodes')
+    for name, d in [('frames', frames)] + list(kinds.items()):
+        require(d['mean_abs'] <= DECODE_MEAN_ABS
+                and d['max_abs'] <= DECODE_MAX_ABS,
+                f'nvJPEG vs cv2 on {name}: {d}')
+        require(d.get('batch_equal', True), f'nvJPEG batch on {name}')
+
+
+def _decode_ms(root, ann, loader):
+    """(c) decode ms a frame over a dense-test video's frames (its
+    SampleFrames: 10 clips x 8): nvJPEG batched, cv2 on one thread, and the
+    4-thread loader with each (the test split with only its SampleFrames
+    and FrameSelector)."""
+    from mvfnet_tpu_torch.config import Config
+    from mvfnet_tpu_torch.data import (DataLoader, ShardedSampler,
+                                       build_dataset, decode_counts)
+    from mvfnet_tpu_torch.tools.jpeg_kinds import cv2_decode
+    cfg = Config.fromfile(CONFIG)
+    sample = dict(cfg.data['test']['pipeline'][0])
+    require(sample['type'] == 'SampleFrames', f'first op {sample}')
+    ds_cfg = dict(cfg.data['test'], ann_file=ann, data_root=root,
+                  pipeline=[sample, dict(type='FrameSelector')])
+    inds = build_dataset(dict(ds_cfg, pipeline=[sample]))[0]['frame_inds']
+    clips = [_frame_paths(root, v, inds.reshape(-1))
+             for v in range(DATA_VIDEOS)]
+    n = sum(len(c) for c in clips)
+    loader.load_batch(clips[0])                                # warm-up
+    t0 = time.perf_counter()
+    for c in clips:
+        loader.load_batch(c)
+    out = dict(frames=n, nvjpeg_batched=(time.perf_counter() - t0) * 1e3 / n)
+    t0 = time.perf_counter()
+    for c in clips:
+        for p in c:
+            cv2_decode(p)
+    out['cv2_one_thread'] = (time.perf_counter() - t0) * 1e3 / n
+    for name, device in (('nvjpeg', 'cuda'), ('cv2.imdecode', None)):
+        dataset = build_dataset(dict(ds_cfg), device)
+        batches = DataLoader(dataset, 1, ShardedSampler(
+            len(dataset), shuffle=False), num_workers=4)
+        list(batches)                                          # warm-up
+        t0 = time.perf_counter()
+        got = sum(len(b['img_group'][0]) for b in batches)
+        out[f'loader_4_threads_{name}'] = (time.perf_counter() - t0) \
+            * 1e3 / got
+        out[f'loader_counts_{name}'] = decode_counts(dataset)
+    print('decode ms a frame: ' + json.dumps(dict(out, card=card_line())))
+    return out
+
+
+def _decode_cli(root, ann):
+    """(d) the test CLI on nvJPEG and on cv2 frames, with host and device
+    normalization; returns the fused launches by case and the ycc_to_bgr
+    launches of each case."""
+    import contextlib
+    import io
+    import pickle
+
+    import numpy as np
+    import torch
+    from mvfnet_tpu_torch.config import Config
+    from mvfnet_tpu_torch.data import native_io
+    from mvfnet_tpu_torch.ops import fused_block as fb
+    from mvfnet_tpu_torch.tools import test_recognizer as cli
+    ckpt = os.path.join(root, 'mvf_r50_random.pth')
+    sample = Config.fromfile(CONFIG).data['test']['pipeline'][0]
+    frames = DATA_VIDEOS * sample['clip_len'] * sample['num_clips']
+    expected = {('bfloat16',) + shape + (cm,): per_video * DATA_VIDEOS
+                for _, shape, cm, per_video in FUSED_SHAPES if per_video}
+    fused, ycc, rows, lines = {}, {}, {}, {}
+    for norm in ('host_norm', 'device_norm'):
+        for dec in ('nvjpeg', 'cv2'):
+            case = f'{norm}_{dec}'
+            config = write_config(root, ann, norm == 'device_norm',
+                                  use_native=dec == 'nvjpeg')
+            out = os.path.join(root, f'scores_decode_{case}.pkl')
+            argv = [config, ckpt, '--fcn_testing', '--videos_per_gpu', '1',
+                    '--out', out]
+            torch.cuda.synchronize()
+            fb.bottleneck_eval_cuda.launches = 0
+            fb.bottleneck_eval_cuda.launches_by_shape.clear()
+            native_io.ycc_to_bgr.launches = 0
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                res = cli.main(argv)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            fused[case] = dict(fb.bottleneck_eval_cuda.launches_by_shape)
+            ycc[case] = native_io.ycc_to_bgr.launches
+            with open(out, 'rb') as f:
+                rows[case] = np.stack(pickle.load(f))
+            prof = device_profile(lambda: _quiet(cli.main, argv))
+            require('busy_ms' in prof, f'decode {case} profile: {prof}')
+            want_counts = {res['decoder']: frames}
+            lines[case] = dict(
+                case=case, decoder=res['decoder'],
+                decode_counts=res['decode_counts'], pass_s=secs,
+                videos_per_s=DATA_VIDEOS / secs,
+                device_ms_per_video=prof['busy_ms'] / DATA_VIDEOS,
+                device_idle_share=prof['idle_share'],
+                fused_launches={'x'.join(map(str, k[1:])): v
+                                for k, v in fused[case].items()},
+                ycc_to_bgr_launches=ycc[case])
+            require(res['decoder'] == ('nvjpeg' if dec == 'nvjpeg'
+                                       else 'cv2.imdecode'),
+                    f'decode {case}: decoder {res["decoder"]}')
+            require(res['decode_counts'] == want_counts,
+                    f'decode {case}: frames decoded {res["decode_counts"]}, '
+                    f'expected {want_counts}')
+            require(fused[case] == expected,
+                    f'decode {case}: fused launches {fused[case]}, '
+                    f'expected {expected}')
+            require(ycc[case] == (frames if dec == 'nvjpeg' else 0),
+                    f'decode {case}: ycc_to_bgr launched {ycc[case]} times')
+        err = float(np.abs(rows[f'{norm}_nvjpeg']
+                           - rows[f'{norm}_cv2']).max())
+        tol = DECODE_TOL * float(np.abs(rows[f'{norm}_cv2']).max())
+        lines[f'{norm}_nvjpeg']['probs_vs_cv2_max_abs_err'] = err
+        lines[f'{norm}_nvjpeg']['probs_tol'] = tol
+        require(err <= tol, f'decode {norm}: nvJPEG vs cv2 probabilities '
+                            f'{err} > {tol}')
+    for line in lines.values():
+        print('decode_cli: ' + json.dumps(dict(line, card=card_line())))
+    return fused, ycc
+
+
+def _tree_equal(a, b):
+    import numpy as np
+    if isinstance(b, dict):
+        return isinstance(a, dict) and set(a) == set(b) and all(
+            _tree_equal(a[k], b[k]) for k in b)
+    a, b = np.asarray(a), np.asarray(b)
+    return a.dtype == b.dtype and a.shape == b.shape \
+        and np.array_equal(a, b)
+
+
+def _orbax(root):
+    """(e) the flagship's state after two train steps through the Orbax
+    step directory and back; (f) the committed JAX-written fixture against
+    its ``.msgpack`` twin."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from mvfnet_tpu_torch.engine.optim import (build_lr_schedule,
+                                               build_optimizer,
+                                               frozen_prefixes_from_backbone)
+    from mvfnet_tpu_torch.engine.train_step import make_train_step
+    from mvfnet_tpu_torch.utils import ocdbt, zstd
+    from mvfnet_tpu_torch.utils.checkpoint import (load_checkpoint,
+                                                   load_checkpoint_orbax,
+                                                   load_optax_state,
+                                                   save_checkpoint_orbax)
+    cfg, model_for, _ = _flagship_state()
+    schedule = build_lr_schedule(cfg.lr_config, cfg.optimizer['lr'],
+                                 ITERS_PER_EPOCH, cfg.total_epochs)
+
+    def trained(steps):
+        model = model_for().to('cuda')
+        opt = build_optimizer(
+            model, cfg.optimizer, schedule,
+            grad_clip=cfg.optimizer_config['grad_clip'],
+            frozen_prefixes=frozen_prefixes_from_backbone(
+                cfg.model['backbone']))
+        step = make_train_step(model, opt, schedule,
+                               norm_cfg=dict(cfg.img_norm_cfg, device=True))
+        rs = np.random.RandomState(0)
+        for i in range(steps):
+            step(rs.randint(0, 256, TRAIN_BATCH, dtype=np.uint8),
+                 rs.randint(0, 400, TRAIN_BATCH[0]),
+                 torch.Generator(device='cuda').manual_seed(i))
+        torch.cuda.synchronize()
+        return model, opt
+
+    model, opt = trained(2)
+    meta = {'epoch': 0, 'iter': 2}
+    with tempfile.TemporaryDirectory(dir=root) as d:
+        t0 = time.perf_counter()
+        nbytes = save_checkpoint_orbax(d, model, opt, meta, step=2)
+        save_s = time.perf_counter() - t0
+        files = sum(len(fs) for _, _, fs in os.walk(d))
+        t0 = time.perf_counter()
+        sd, opt_state, got_meta = load_checkpoint_orbax(d, 2)
+        load_s = time.perf_counter() - t0
+    want = {k: v.cpu() for k, v in model.state_dict().items()}
+    weights_equal = all(torch.equal(sd[k], want[k]) and
+                        sd[k].dtype == want[k].dtype
+                        for k in want if not k.endswith('num_batches_tracked'))
+    fresh, fresh_opt = trained(0)
+    load_optax_state(fresh, fresh_opt, opt_state, 2)
+    momentum_equal = all(
+        torch.equal(opt.state[p]['momentum_buffer'],
+                    fresh_opt.state[q]['momentum_buffer'])
+        for p, q in zip(model.parameters(), fresh.parameters())
+        if p in opt.state)
+    buffers = sum(p in opt.state for p in model.parameters())
+
+    t0 = time.perf_counter()
+    g_sd, g_opt, g_meta = load_checkpoint_orbax(
+        os.path.join(GOLDEN_ORBAX, 'orbax'), GOLDEN_STEP)
+    golden_s = time.perf_counter() - t0
+    # the zstd decoder on the chunks tensorstore compressed
+    store = ocdbt.Store(os.path.join(GOLDEN_ORBAX, 'orbax',
+                                     f'step_{GOLDEN_STEP}'))
+    chunks = [store.get(k) for k in store.keys()
+              if not k.endswith('.zarray')]
+    t0 = time.perf_counter()
+    zstd_out = sum(len(zstd.decompress(c)) for c in chunks)
+    zstd_s = time.perf_counter() - t0
+    t_sd, t_opt, t_meta = load_checkpoint(
+        os.path.join(GOLDEN_ORBAX, 'orbax_twin.msgpack'))
+    golden_equal = (set(g_sd) == set(t_sd) and all(
+        torch.equal(g_sd[k], t_sd[k]) for k in t_sd)
+        and _tree_equal(g_opt, t_opt) and g_meta == t_meta)
+    print('orbax: ' + json.dumps(dict(
+        state='flagship after 2 train steps', mb=nbytes / 1e6, files=files,
+        save_s=save_s, load_s=load_s, write_mb_per_s=nbytes / 1e6 / save_s,
+        read_mb_per_s=nbytes / 1e6 / load_s, weights_equal=weights_equal,
+        momentum_buffers=buffers, momentum_equal=momentum_equal,
+        meta_equal=got_meta == meta, golden_fixture_equal=golden_equal,
+        golden_read_s=golden_s, golden_keys=len(g_sd),
+        zstd_in_mb=sum(map(len, chunks)) / 1e6, zstd_out_mb=zstd_out / 1e6,
+        zstd_mb_per_s=zstd_out / 1e6 / zstd_s, card=card_line())))
+    require(weights_equal and got_meta == meta,
+            'Orbax round trip: the weights differ')
+    require(momentum_equal and buffers > 100,
+            f'Orbax round trip: momentum ({buffers} buffers) differs')
+    require(golden_equal, 'the JAX-written Orbax fixture differs from its '
+                          '.msgpack twin')
+    del model, opt, fresh, fresh_opt
+    torch.cuda.empty_cache()
+
+
+def _ycc_record(launches):
+    """The ycc_to_bgr kernel on a frame's planes at the set's size (4:2:0,
+    as cv2 writes it) against its plain version on the card, timed with
+    both; its bound is the bytes (the planes read, BGR written; about 40
+    integer operations a pixel on the 67 TFLOP/s of the non-tensor units
+    take less)."""
+    import torch
+    from mvfnet_tpu_torch.data import native_io as nio
+    h, w = DATA_HW
+    ch, cw = (h + 1) // 2, (w + 1) // 2
+    g = torch.Generator(device='cuda').manual_seed(13)
+    planes = [torch.randint(0, 256, s, generator=g, device='cuda',
+                            dtype=torch.uint8)
+              for s in ((h, w), (ch, cw), (ch, cw))]
+    before = nio.ycc_to_bgr.launches
+    got = nio.ycc_to_bgr(*planes, 2, 2)
+    want = nio.ycc_to_bgr_plain(*planes, 2, 2)
+    err = int((got.int() - want.int()).abs().max())
+    ms = median_ms(lambda: nio.ycc_to_bgr(*planes, 2, 2))
+    plain_ms = median_ms(lambda: nio.ycc_to_bgr_plain(*planes, 2, 2))
+    nio.ycc_to_bgr.launches = before          # comparisons do not count
+    nbytes = h * w + 2 * ch * cw + 3 * h * w
+    bound_ms = max(nbytes / PEAK_BYTES, 40 * h * w / PEAK_FLOPS['float32']) \
+        * 1e3
+    require(err == 0, f'ycc_to_bgr vs plain: max abs err {err}')
+    return dict(YCC_KERNEL, shape=[h, w, 2, 2],
+                launches=launches['device_norm_nvjpeg'],
+                launches_decode=launches, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by='bytes',
+                library_ms=None, card=card_line())
+
+
+def phase_decode(root, ann):
+    """Phase 13 on phase 5's rawframe set; returns the ycc_to_bgr kernel's
+    record and the fused launches of (d) by case."""
+    from mvfnet_tpu_torch.data.native_io import NativeImageLoader
+    t0 = time.perf_counter()
+    loader = NativeImageLoader('cuda')
+    _decode_compare(root, loader)
+    _decode_ms(root, ann, loader)
+    fused, ycc = _decode_cli(root, ann)
+    record = _ycc_record(ycc)
+    _orbax(root)
+    print(f'phase 13: {time.perf_counter() - t0:.3f} s')
+    return record, fused
+
+
 def phase_rawframes():
     """Phases 5-8 on one rawframe dataset in a temporary directory, then
-    phase 9 on the same frames as video files and phases 10 and 11 on the
+    phase 9 on the same frames as video files and phases 10-13 on the
     same frames again; returns their fused-kernel launches by case (and
-    shape but in phase 10, which counts them all)."""
+    shape but in phase 10, which counts them all), phase 12's int8 kernel
+    records and phase 13's ycc_to_bgr record."""
     import tempfile
 
     import cv2
@@ -3623,9 +4001,10 @@ def phase_rawframes():
         launches_3d = phase_3d(root)
         launches_2d = phase_family(root, ann)
         int8_records, launches_int8 = phase_int8(root, ann)
+        ycc_record, launches_decode = phase_decode(root, ann)
         return (data_launches, train_launches, feature_launches,
                 dist_launches, video_launches, launches_3d, launches_2d,
-                int8_records, launches_int8)
+                int8_records, launches_int8, ycc_record, launches_decode)
 
 
 def main():
@@ -3656,7 +4035,8 @@ def main():
         phase_train()
         (data_launches, train_launches, feature_launches,
          dist_launches, video_launches, launches_3d,
-         launches_2d, int8_records, launches_int8) = phase_rawframes()
+         launches_2d, int8_records, launches_int8, ycc_record,
+         launches_decode) = phase_rawframes()
         for r in records:
             key = (r['dtype'],) + tuple(r['shape'])
             r['launches'] = launches.get(key, 0)
@@ -3675,7 +4055,9 @@ def main():
                                 for case, n in launches_2d.items()}
             r['launches_int8'] = {case: n.get(key, 0)
                                   for case, n in launches_int8.items()}
-        records += int8_records
+            r['launches_decode'] = {case: n.get(key, 0)
+                                    for case, n in launches_decode.items()}
+        records += int8_records + [ycc_record]
     except SmokeFailure as e:
         print(f'chip_smoke: FAILED: {e}', file=sys.stderr)
         return 1

@@ -33,7 +33,16 @@ class RepeatDataset:
             self.dataset.set_epoch(epoch)
 
 
-def build_dataset(cfg: Dict[str, Any]):
+def build_dataset(cfg: Dict[str, Any], device=None):
+    """The dataset of ``cfg``; its pipeline's ops that decode frames
+    (``decode_on``) decode for ``device``, the entry point's (nvJPEG on a
+    CUDA device), and with cv2 when it is None."""
     if cfg.get('type') == 'RepeatDataset':
-        return RepeatDataset(build_dataset(cfg['dataset']), cfg['times'])
-    return build_from_cfg(cfg, DATASETS)
+        return RepeatDataset(build_dataset(cfg['dataset'], device),
+                             cfg['times'])
+    dataset = build_from_cfg(cfg, DATASETS)
+    if device is not None:
+        for op in dataset.pipeline.transforms:
+            if hasattr(op, 'decode_on'):
+                op.decode_on(device)
+    return dataset

@@ -6,25 +6,29 @@ lists) and the four video decoders ``PyAVDecode``, ``DecordDecode``,
 (``codes/datasets/pipelines/loading.py:134-475``). Frames decode with
 OpenCV into HWC uint8 BGR, as in the JAX package: JPEGs with
 ``cv2.imdecode``, video containers with ``cv2.VideoCapture``
-(``video_io.py``) under every decoder's config name. Each op's
-``decoder`` names what it runs. The native batch decode worker is not
-ported yet (``ROADMAP.md``, A3).
+(``video_io.py``) under every decoder's config name. On a CUDA device
+``FrameSelector`` decodes RGB clips with the native batch worker, nvJPEG
+(``native_io.py``), as the JAX one does with its libjpeg worker. Each op's
+``decoder`` names what it runs.
 """
 
 from __future__ import annotations
 
+import collections
 import os.path as osp
 import pickle
+import threading
 from typing import List, Optional
 
 import cv2
 import numpy as np
 
+from . import native_io
 from .builder import PIPELINES
 from .video_io import DECODERS, decode_frames_accurate, decode_frames_seek
 
-# the one JPEG decoder of the port's host pipeline, named in logs and in
-# chip_smoke.py's output
+# the JPEG decoder of the port's host pipeline on the CPU (the plain
+# version of the native worker), named in logs and in chip_smoke.py's output
 DECODER = 'cv2.imdecode'
 
 
@@ -49,9 +53,14 @@ class FrameSelector:
 
     Frame filenames are 1-based (``filename_tmpl.format(frame_idx + 1)``).
     A corrupt image falls back to the first successfully-loaded frame
-    (reference ``loading.py:434-437``). ``use_native`` is accepted for
-    config compatibility; every frame decodes with ``DECODER``, fixed here
-    at construction.
+    (reference ``loading.py:434-437``). Frames decode with ``cv2.imdecode``
+    until ``decode_on`` names a CUDA device (the dataset builder passes the
+    entry point's): then, with ``use_native`` and frames on disk, one
+    nvJPEG call decodes an RGB or RGBDiff clip (the JAX package's native
+    path). If the batch fails, frames go one by one; a frame nvJPEG
+    refuses for its bitstream decodes with cv2, and failing that takes the
+    backup frame. Flow stays on cv2 (grayscale). ``counts`` holds the
+    frames each decoder gave.
     """
 
     def __init__(self, io_backend: str = 'disk', use_native: bool = True,
@@ -61,9 +70,34 @@ class FrameSelector:
         self.file_client = FileClient(io_backend, **kwargs)
         self.use_native = use_native
         self.decoder = DECODER
+        self._native: Optional[native_io.NativeImageLoader] = None
+        self.counts = collections.Counter()
+        self._counts_lock = threading.Lock()
         self.backup = None
 
-    def _load(self, filepath: str, flag: str = 'color'):
+    def decode_on(self, device) -> None:
+        """Decode with nvJPEG on ``device`` where it is a CUDA device (and
+        ``use_native``, frames on disk); raises if the worker cannot be
+        built or the card is missing. Other devices keep cv2."""
+        if self.use_native and self.io_backend == 'disk' \
+                and str(device).startswith('cuda'):
+            self._native = native_io.NativeImageLoader(device)
+            self.decoder = native_io.DECODER
+        else:
+            self._native = None
+            self.decoder = DECODER
+
+    def _count(self, counts) -> None:
+        with self._counts_lock:
+            self.counts.update(counts)
+
+    def _load(self, filepath: str, flag: str, counts: collections.Counter):
+        if self._native is not None and flag == 'color':
+            img = self._native.load(filepath)
+            if img is not None:
+                counts[native_io.DECODER] += 1
+                return img
+        counts[DECODER] += 1
         if self.io_backend == 'disk':
             img = _load_image_file(filepath, flag)
         else:
@@ -83,24 +117,41 @@ class FrameSelector:
         inds = np.asarray(results['frame_inds']).reshape(-1)
         imgs: List[np.ndarray] = []
         modality = results.get('modality', 'RGB')
-        for frame_idx in inds:
-            frame_idx = int(frame_idx)
-            if modality in ('RGB', 'RGBDiff'):
-                cur = [self._load(osp.join(directory,
-                                           tmpl.format(frame_idx + 1)))]
-            elif modality == 'Flow':
-                x = self._load(osp.join(
-                    directory, tmpl.format('x', frame_idx + 1)), 'grayscale')
-                y = self._load(osp.join(
-                    directory, tmpl.format('y', frame_idx + 1)), 'grayscale')
-                cur = [x, y]
-            else:
-                raise ValueError(f'unsupported modality {modality}')
-            if any(c is None for c in cur):
-                return None  # unrecoverable; let dataset retry
-            imgs.extend(cur)
-            if self.backup is None:
-                self.backup = cur[0]
+        if self._native is not None and modality in ('RGB', 'RGBDiff'):
+            # one nvJPEG call decodes the whole clip
+            batch = self._native.load_batch(
+                [osp.join(directory, tmpl.format(int(i) + 1)) for i in inds])
+            if batch is not None:
+                self._count({native_io.DECODER: len(batch)})
+                results['img_group'] = batch
+                results['ori_shape'] = batch[0].shape
+                return results
+            # frame by frame (a frame nvJPEG refuses goes to cv2)
+        counts = collections.Counter()
+        try:
+            for frame_idx in inds:
+                frame_idx = int(frame_idx)
+                if modality in ('RGB', 'RGBDiff'):
+                    cur = [self._load(osp.join(directory,
+                                               tmpl.format(frame_idx + 1)),
+                                      'color', counts)]
+                elif modality == 'Flow':
+                    x = self._load(osp.join(
+                        directory, tmpl.format('x', frame_idx + 1)),
+                        'grayscale', counts)
+                    y = self._load(osp.join(
+                        directory, tmpl.format('y', frame_idx + 1)),
+                        'grayscale', counts)
+                    cur = [x, y]
+                else:
+                    raise ValueError(f'unsupported modality {modality}')
+                if any(c is None for c in cur):
+                    return None  # unrecoverable; let dataset retry
+                imgs.extend(cur)
+                if self.backup is None:
+                    self.backup = cur[0]
+        finally:
+            self._count(counts)
         results['img_group'] = imgs
         results['ori_shape'] = imgs[0].shape
         return results

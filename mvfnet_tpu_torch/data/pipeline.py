@@ -47,6 +47,15 @@ def dataset_decoder(dataset) -> Optional[str]:
                  if hasattr(t, 'decoder')), None)
 
 
+def decode_counts(dataset) -> Dict[str, int]:
+    """How many frames each JPEG decoder has given a dataset so far
+    (``FrameSelector.counts``: ``nvjpeg``, and ``cv2.imdecode`` for the
+    frames sent to cv2), for the CLIs' logs; {} where no op counts."""
+    dataset = getattr(dataset, 'dataset', dataset)
+    return next((dict(t.counts) for t in dataset.pipeline.transforms
+                 if hasattr(t, 'counts')), {})
+
+
 def device_norm_cfg(pipeline) -> Optional[Dict[str, Any]]:
     """The constants of a pipeline config's ``Normalize(device=True)`` node
     (without its ``type``), or None when the host normalizes (counterpart

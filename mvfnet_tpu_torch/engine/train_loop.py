@@ -158,7 +158,7 @@ class EvalHook(Hook):
             return
         from .eval import evaluate_dataset
         if self._dataset is None:
-            self._dataset = build_dataset(self.dataset_cfg)
+            self._dataset = build_dataset(self.dataset_cfg, loop.device)
         dataset = self._dataset
         scores = evaluate_dataset(
             loop.model, dataset, videos_per_gpu=self.videos_per_gpu,

@@ -2,9 +2,12 @@
 
 ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, at first use, into ``_build/`` (listed in
-``.gitignore``). The library's file name carries a hash of its source, so an
-edited source is rebuilt and a stale library is never loaded. Libraries are
-loaded with ``ctypes``; nothing here runs when the module is imported.
+``.gitignore``). A source that calls a CUDA library (nvJPEG) names it in
+``LINK``; the library is linked from the toolkit's ``lib64``, which goes on
+the built library's run path. The built file's name carries a hash of its
+source and of the nvcc command's flags, so an edited source or a changed
+flag is rebuilt and a stale library is never loaded. Libraries are loaded
+with ``ctypes``; nothing here runs when the module is imported.
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
-from typing import Dict, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG, 'csrc')
@@ -24,6 +27,8 @@ BUILD_DIR = os.path.join(_PKG, '_build')
 
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
+# the CUDA libraries each source links, beyond the runtime
+LINK: Dict[str, Sequence[str]] = {'nvjpeg_decode': ('-lnvjpeg',)}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -39,18 +44,41 @@ def _nvcc() -> str:
     return path
 
 
+def _flags(name: str, nvcc: str) -> List[str]:
+    """nvcc's flags for ``csrc/<name>.cu``: ``NVCC_FLAGS``, then its
+    ``LINK`` libraries from the toolkit's ``lib64`` beside ``nvcc``'s
+    ``bin``, that directory also on the library's run path."""
+    libs = list(LINK.get(name, ()))
+    if not libs:
+        return list(NVCC_FLAGS)
+    lib64 = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.realpath(nvcc))), 'lib64')
+    return NVCC_FLAGS + [f'-L{lib64}', f'-Xlinker=-rpath={lib64}'] + libs
+
+
+def library_path(name: str, nvcc: str) -> Tuple[str, List[str]]:
+    """Where ``csrc/<name>.cu``'s library is built, named by a hash of the
+    source and of its flags, and the flags."""
+    args = _flags(name, nvcc)
+    digest = hashlib.sha1()
+    with open(os.path.join(SRC_DIR, name + '.cu'), 'rb') as f:
+        digest.update(f.read())
+    digest.update('\0'.join(args).encode())
+    return (os.path.join(BUILD_DIR, f'lib{name}_{digest.hexdigest()[:16]}.so'),
+            args)
+
+
 def _build(name: str) -> str:
     """Compile ``csrc/<name>.cu`` unless its library exists; its path."""
-    src = os.path.join(SRC_DIR, name + '.cu')
-    with open(src, 'rb') as f:
-        digest = hashlib.sha1(f.read()).hexdigest()[:16]
-    path = os.path.join(BUILD_DIR, f'lib{name}_{digest}.so')
+    nvcc = _nvcc()
+    path, args = library_path(name, nvcc)
     if os.path.exists(path):
         return path
+    src = os.path.join(SRC_DIR, name + '.cu')
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
     os.close(fd)
-    proc = subprocess.run([_nvcc()] + NVCC_FLAGS + ['-o', tmp, src],
+    proc = subprocess.run([nvcc] + args + ['-o', tmp, src],
                           capture_output=True, text=True)
     build_logs[name] = proc.stdout + proc.stderr
     if proc.returncode != 0:

@@ -53,7 +53,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, List[float]]:
 
 def _extract(args, device) -> Dict[str, List[float]]:
     from ..config import Config
-    from ..data import build_dataset, dataset_decoder, device_norm_cfg
+    from ..data import (build_dataset, dataset_decoder, decode_counts,
+                        device_norm_cfg)
     from ..engine.eval import evaluate_dataset
     from ..models.builder import model_name
     from ..parallel import is_main_process
@@ -67,7 +68,7 @@ def _extract(args, device) -> Dict[str, List[float]]:
                 model.compute_dtype)
     load_checkpoint(model, args.checkpoint, logger)
 
-    dataset = build_dataset(dict(cfg.data['test']))
+    dataset = build_dataset(dict(cfg.data['test']), device)
     logger.info('dataset: %d videos, decoder %s', len(dataset),
                 dataset_decoder(dataset))
     feats = evaluate_dataset(
@@ -76,6 +77,7 @@ def _extract(args, device) -> Dict[str, List[float]]:
         extract_feat=True, progress=True,
         norm_cfg=device_norm_cfg(cfg.data['test'].get('pipeline')),
         device=device)
+    logger.info('frames decoded: %s', decode_counts(dataset))
     out = {info['filename'].split('/')[-1]: [float(x) for x in feat]
            for info, feat in zip(dataset.video_infos, feats)}
     if is_main_process():

@@ -114,7 +114,8 @@ def calibrate(model, dataset, videos: int, norm_cfg, device,
 
 def _test(args, device) -> Dict[str, Any]:
     from ..config import Config
-    from ..data import build_dataset, dataset_decoder, device_norm_cfg
+    from ..data import (build_dataset, dataset_decoder, decode_counts,
+                        device_norm_cfg)
     from ..engine.eval import evaluate_dataset
     from ..models.common import quant_buffers
     from ..models.builder import model_name
@@ -130,7 +131,7 @@ def _test(args, device) -> Dict[str, Any]:
                 model.compute_dtype)
     load_checkpoint(model, args.checkpoint, logger)
 
-    dataset = build_dataset(dict(cfg.data['test']))
+    dataset = build_dataset(dict(cfg.data['test']), device)
     logger.info('test dataset: %d videos, decoder %s', len(dataset),
                 dataset_decoder(dataset))
     norm_cfg = device_norm_cfg(cfg.data['test'].get('pipeline'))
@@ -140,6 +141,8 @@ def _test(args, device) -> Dict[str, Any]:
         workers_per_gpu=cfg.data.get('workers_per_gpu', 4), progress=True,
         norm_cfg=norm_cfg, device=device)
 
+    counts = decode_counts(dataset)
+    logger.info('frames decoded: %s', counts)
     labels = [info['label'] for info in dataset.video_infos]
     top1, top5 = top_k_accuracy(scores, labels, k=(1, 5))
     mca = mean_class_accuracy(scores, labels)
@@ -152,6 +155,7 @@ def _test(args, device) -> Dict[str, Any]:
         print(f'Top-5 Accuracy = {top5 * 100:.02f}')
         print(f'Mean Class Accuracy = {mca * 100:.02f}')
     return dict(scores=scores, top1=top1, top5=top5, mean_class=mca,
+                decoder=dataset_decoder(dataset), decode_counts=counts,
                 quant_stats={k: v.detach().cpu()
                              for k, v in quant_buffers(model).items()})
 

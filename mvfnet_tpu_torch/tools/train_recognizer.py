@@ -120,7 +120,7 @@ def main(argv: Optional[Sequence[str]] = None):
 
 def _train(args, device):
     from ..config import Config
-    from ..data import build_dataset, dataset_decoder
+    from ..data import build_dataset, dataset_decoder, decode_counts
     from ..engine.train_loop import train_network
     from ..models import build_recognizer
     from ..models.builder import model_name
@@ -155,7 +155,7 @@ def _train(args, device):
         model = build_recognizer(dict(cfg.model, dtype=dtype),
                                  train_cfg=cfg.get('train_cfg'),
                                  test_cfg=cfg.get('test_cfg'))
-        dataset = build_dataset(dict(cfg.data['train']))
+        dataset = build_dataset(dict(cfg.data['train']), device)
         if args.seed is not None and hasattr(dataset, 'seed'):
             dataset.seed = args.seed
         logger.info('dataset: %d videos, decoder %s, compute dtype %s, '
@@ -165,9 +165,11 @@ def _train(args, device):
                                       os.path.join(cfg.work_dir, 'profile'),
                                       logger)]
                        if args.profile and info['rank'] == 0 else [])
-        return train_network(model, dataset, cfg, validate=args.validate,
+        loop = train_network(model, dataset, cfg, validate=args.validate,
                              logger=logger, seed=args.seed or 0,
                              device=device, extra_hooks=extra_hooks)
+        logger.info('train frames decoded: %s', decode_counts(dataset))
+        return loop
     finally:
         logger.removeHandler(log_file)
         log_file.close()

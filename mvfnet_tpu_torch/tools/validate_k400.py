@@ -88,7 +88,7 @@ def validate(args: argparse.Namespace) -> Dict[str, Any]:
     load_checkpoint(model, args.checkpoint, logger)
     data_cfg = dict(cfg.data['test'], ann_file=args.ann,
                     data_root=args.data_root)
-    dataset = build_dataset(data_cfg)
+    dataset = build_dataset(data_cfg, args.device)
     if args.max_videos:
         dataset.video_infos = dataset.video_infos[:args.max_videos]
     logger.info('validation dataset: %d videos', len(dataset))

@@ -39,6 +39,10 @@
   serialization of ``{'variables', 'opt_state'}``, with a ``.meta.json``
   sidecar); ``load_checkpoint`` reads them and ``save_msgpack_checkpoint``
   writes them, through the port's own codec (``utils/msgpack_codec.py``).
+  ``save_checkpoint_orbax`` / ``load_checkpoint_orbax`` write and read the
+  same payload as the JAX package's Orbax step directories
+  (``{ckpt_dir}/step_{step}`` and ``step_{step}.meta.json``) without
+  orbax (``utils/orbax_io.py``).
 - ``optax_state_from_optimizer`` / ``load_optax_state``: the SGD momentum
   buffers of ``engine.optim.ClippedSGD`` as the optax state of the JAX
   package's optimizer chain (``mvfnet_tpu/engine/optim.py:189-227``), and
@@ -57,6 +61,7 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+from . import orbax_io
 from .logging import get_root_logger
 from .msgpack_codec import msgpack_restore, write_msgpack
 
@@ -718,23 +723,29 @@ def jax_variables_from_state_dict(state_dict: Dict[str, torch.Tensor]
     return out
 
 
-def _load_msgpack(path: str):
-    with open(path, 'rb') as f:
-        # one writable buffer: the arrays the codec returns view it
-        data = bytearray(os.fstat(f.fileno()).st_size)
-        f.readinto(data)
-    payload = msgpack_restore(data)
+def _from_payload(payload: Dict[str, Any], path: str, meta_path: str):
+    """``(state_dict, opt_state or None, meta)`` of the JAX package's
+    checkpoint payload ``{'variables', 'opt_state'}``, read from ``path``,
+    with the ``meta_path`` sidecar where it exists."""
     variables = payload['variables']
     extra = sorted(set(variables) - set(_COLLECTIONS))
     if extra:
         raise ValueError(f'{path}: collections {extra} beyond '
                          f'{", ".join(_COLLECTIONS)}')
     meta: Dict[str, Any] = {}
-    if os.path.exists(path + '.meta.json'):
-        with open(path + '.meta.json') as f:
+    if os.path.exists(meta_path):
+        with open(meta_path) as f:
             meta = json.load(f)
     return (state_dict_from_jax(variables), payload.get('opt_state') or None,
             meta)
+
+
+def _load_msgpack(path: str):
+    with open(path, 'rb') as f:
+        # one writable buffer: the arrays the codec returns view it
+        data = bytearray(os.fstat(f.fileno()).st_size)
+        f.readinto(data)
+    return _from_payload(msgpack_restore(data), path, path + '.meta.json')
 
 
 def _optax_layout(optimizer) -> Tuple[bool, Dict[str, Dict[str, str]]]:
@@ -862,24 +873,30 @@ def load_optax_state(model: torch.nn.Module, optimizer,
                                 f'the label: {sorted(leaves)[:3]}')
 
 
+def _jax_payload(model: torch.nn.Module, optimizer,
+                 meta: Dict[str, Any]) -> Dict[str, Any]:
+    """The JAX package's checkpoint payload of ``model``: ``{'variables':
+    {'params', 'batch_stats'}, 'opt_state'}`` in flax's layout (with
+    ``quant_stats`` when the model has int8 convs), the optax state from
+    ``optimizer`` at ``meta['iter']`` steps (``{}`` without one)."""
+    from ..models.common import quant_buffers
+    return {
+        'variables': jax_variables_from_state_dict(
+            {**model.state_dict(), **quant_buffers(model)}),
+        'opt_state': ({} if optimizer is None else optax_state_from_optimizer(
+            model, optimizer, meta.get('iter', 0)))}
+
+
 def save_msgpack_checkpoint(path: str, model: torch.nn.Module,
                             optimizer=None,
                             meta: Optional[Dict[str, Any]] = None) -> None:
     """Write the JAX package's ``.msgpack`` checkpoint of ``model`` (the
     counterpart of ``mvfnet_tpu/utils/checkpoint.py::save_checkpoint``):
-    ``{'variables': {'params', 'batch_stats'}, 'opt_state'}`` in flax's
-    layout (with ``quant_stats`` when the model has int8 convs), the optax
-    state from ``optimizer`` at ``meta['iter']`` steps (``{}`` without
-    one), written atomically (a temporary file in the same
+    ``_jax_payload``, written atomically (a temporary file in the same
     directory, then ``os.replace``), and ``meta`` as the ``.meta.json``
     sidecar."""
     meta = dict(meta or {})
-    from ..models.common import quant_buffers
-    payload = {
-        'variables': jax_variables_from_state_dict(
-            {**model.state_dict(), **quant_buffers(model)}),
-        'opt_state': ({} if optimizer is None else optax_state_from_optimizer(
-            model, optimizer, meta.get('iter', 0)))}
+    payload = _jax_payload(model, optimizer, meta)
     dirpath = os.path.dirname(os.path.abspath(path))
     os.makedirs(dirpath, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=dirpath, suffix='.tmp')
@@ -893,3 +910,35 @@ def save_msgpack_checkpoint(path: str, model: torch.nn.Module,
         raise
     with open(path + '.meta.json', 'w') as f:
         json.dump(meta, f)
+
+
+def save_checkpoint_orbax(ckpt_dir: str, model: torch.nn.Module,
+                          optimizer=None,
+                          meta: Optional[Dict[str, Any]] = None,
+                          step: int = 0) -> int:
+    """Write the JAX package's Orbax step directory of ``model`` (the
+    counterpart of ``mvfnet_tpu/utils/checkpoint.py::
+    save_checkpoint_orbax``): ``_jax_payload`` (variables and the optax
+    state) as ``{ckpt_dir}/step_{step}`` in orbax's per-file layout, which
+    the JAX package's ``load_checkpoint_orbax`` reads (``utils/
+    orbax_io.py``), and ``meta`` as ``step_{step}.meta.json``. Returns the
+    bytes of array data written."""
+    meta = dict(meta or {})
+    nbytes = orbax_io.save_pytree(os.path.join(ckpt_dir, f'step_{step}'),
+                                  _jax_payload(model, optimizer, meta))
+    with open(os.path.join(ckpt_dir, f'step_{step}.meta.json'), 'w') as f:
+        json.dump(meta, f)
+    return nbytes
+
+
+def load_checkpoint_orbax(ckpt_dir: str, step: int
+                          ) -> Tuple[Dict[str, torch.Tensor],
+                                     Optional[Dict[str, Any]],
+                                     Dict[str, Any]]:
+    """``(state_dict, opt_state or None, meta)`` of an Orbax step directory
+    ``{ckpt_dir}/step_{step}``, written by the JAX package (OCDBT) or by
+    ``save_checkpoint_orbax``, as ``load_checkpoint`` gives them for a
+    ``.msgpack`` file: ``opt_state`` fits ``load_optax_state``."""
+    path = os.path.join(ckpt_dir, f'step_{step}')
+    return _from_payload(orbax_io.load_pytree(path), path,
+                         os.path.join(ckpt_dir, f'step_{step}.meta.json'))

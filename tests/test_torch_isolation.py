@@ -1,6 +1,7 @@
-"""The port stands alone: no JAX, flax, msgpack, mvfnet_tpu, PyAV, decord
-or triton import anywhere in mvfnet_tpu_torch/ or chip_smoke.py (the port
-carries its own msgpack codec and decodes video with cv2), importing it
+"""The port stands alone: no JAX, flax, msgpack, mvfnet_tpu, PyAV, decord,
+triton, orbax, tensorstore or zstandard import anywhere in
+mvfnet_tpu_torch/ or chip_smoke.py (the port carries its own msgpack codec,
+zstd decoder and OCDBT reader, and decodes video with cv2), importing it
 loads none of them nor a kernel, and its entry points run on CUDA unless
 told not to."""
 
@@ -15,7 +16,7 @@ import torch
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), '..'))
 PORT = os.path.join(REPO, 'mvfnet_tpu_torch')
 FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'mvfnet_tpu', 'av',
-             'decord', 'triton')
+             'decord', 'triton', 'orbax', 'tensorstore', 'zstandard')
 
 
 def _port_files():
@@ -65,6 +66,10 @@ def test_import_loads_no_jax_triton_or_kernel():
         'import mvfnet_tpu_torch.tools.report_accuracy\n'
         'import mvfnet_tpu_torch.utils.flops\n'
         'import mvfnet_tpu_torch.utils.msgpack_codec\n'
+        'import mvfnet_tpu_torch.utils.zstd, mvfnet_tpu_torch.utils.ocdbt\n'
+        'import mvfnet_tpu_torch.utils.orbax_io\n'
+        'import mvfnet_tpu_torch.data.native_io\n'
+        'import mvfnet_tpu_torch.tools.jpeg_kinds\n'
         'import mvfnet_tpu_torch.parallel, mvfnet_tpu_torch.parallel.dist\n'
         'import mvfnet_tpu_torch.parallel.launch\n'
         'import mvfnet_tpu_torch.data.video_io\n'
@@ -76,7 +81,8 @@ def test_import_loads_no_jax_triton_or_kernel():
         'import mvfnet_tpu_torch.models.recognizers.recognizer3d\n'
         'from mvfnet_tpu_torch.ops import _cuda\n'
         'mods = [m for m in sys.modules if m.split(".")[0] in '
-        '("jax", "flax", "msgpack", "triton", "av", "decord") '
+        '("jax", "flax", "msgpack", "triton", "av", "decord", "orbax", '
+        '"tensorstore", "zstandard") '
         'or m == "mvfnet_tpu" '
         'or m.startswith("mvfnet_tpu.")]\n'
         'assert not mods, mods\n'
