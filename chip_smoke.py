@@ -11,7 +11,8 @@ Phases, each of which exits non-zero on failure:
 2. kernel: holds each kernel against its plain PyTorch version on the card,
    in float32 (TF32 off) and bfloat16, at the unit-test shapes and at the
    shapes the dense-test path and the train CLI's evaluation give it, and
-   times kernel, plain version and the bound with CUDA events.
+   times kernel, plain version and the bound with CUDA events (at the four
+   small eval shapes also the kernel's device time from torch.profiler).
 3. slice: builds MVFNet-R50 8x8 from its config file through the port's
    entry points (seeded random weights, bf16 compute), answers three
    dense-test requests of (1, 240, 256, 256, 3) uint8 frames, checks the
@@ -171,14 +172,20 @@ Phases, each of which exits non-zero on failure:
    kernel) against cv2.imdecode on every frame of the set and on the JPEG
    kinds of ``tools/jpeg_kinds.py`` (4:2:0, 4:4:4, 4:2:2, grayscale, odd
    size, restart markers, progressive): max and mean absolute difference,
-   the share of values that differ, within the card tests' bounds, and a
-   video's batch equal to its single decodes; (c) decode ms a frame:
-   nvJPEG batched, cv2 on one thread, and the 4-thread loader with each;
+   the share of values that differ, within the card tests' bounds, every
+   frame of the set equal to ycc_to_bgr's plain version on the planes
+   nvJPEG decoded, and a video's batch equal to its single decodes; (c)
+   decode ms a frame: nvJPEG batched, cv2 on one thread, and the 4-thread
+   loader with each;
    (d) the test CLI with host and with device normalization, each on
    nvJPEG frames and on cv2 frames (``FrameSelector(use_native=False)``):
    videos/s, device ms a video, idle share, the frames each decoder gave
-   (none to cv2 on nvJPEG), 2 + 3 fused launches a video, probabilities
-   within 3e-2 of the largest of the cv2 run's; (e) the flagship's state
+   (none to cv2 on nvJPEG), the frames the ycc_to_bgr kernel converted
+   (those nvJPEG decoded) and its launches (one a decode call), 2 + 3
+   fused launches a video, probabilities within 3e-2 of the largest of the
+   cv2 run's; then the ycc_to_bgr kernel on a decode call's 80 frames and
+   on one frame, bit for bit against its plain version, its device time
+   from torch.profiler and CUDA events; (e) the flagship's state
    after two train steps through ``save_checkpoint_orbax`` and
    ``load_checkpoint_orbax``: weights and momentum bit for bit, seconds and
    MB; (f) the committed JAX-written Orbax fixture
@@ -191,10 +198,12 @@ shape in phases 3, 5, 6 and 7, per rank in phase 8's cases as
 10 as ``launches_3d``, in phase 11 as ``launches_2d``, in phase 12 as
 ``launches_int8`` and in phase 13 as ``launches_decode``; then one record
 per shape of the int8 kernel, its ``launches`` those of phase 12's timed
-calls; then the ycc_to_bgr kernel's, its ``launches`` those of phase 13
-(d)'s device-normalization run on nvJPEG), the card's name and power
-limit,
-and last ``{"ok": true, "device": {...}}``. Without CUDA, or without the
+calls; then the ycc_to_bgr kernel's, its ``launches`` and ``frames``
+those of phase 13 (d)'s device-normalization run on nvJPEG, every case's
+in ``launches_decode``; the four fused records of ``DEVICE_TIMED`` and
+the ycc_to_bgr record carry ``device_ms``, the profiler's device time,
+beside the event-timed ``ms``), the card's name and power limit, and
+last ``{"ok": true, "device": {...}}``. Without CUDA, or without the
 repository beside it, it exits non-zero and prints no result.
 """
 
@@ -249,6 +258,10 @@ VAL_LAUNCHES = {'val_layer1': 2, 'val_layer2': 3}
 # take the general kernel (every other bf16 shape with Cin and Cm multiples
 # of 64 must take the tiled one)
 GENERAL_BF16 = {'nonlocal_layer3'}
+# shapes whose kernel is shorter than its Python wrapper: their records
+# also carry the profiler's device time (``device_ms``)
+DEVICE_TIMED = {'val_layer1', 'val_layer2', 'video_val_layer1',
+                'video_val_layer2'}
 TIMED_RUNS = 25
 VIDEOS = 3
 VIEWS, CROP = 30, 256       # a dense-test video: 3 crops x 10 clips of 256^2
@@ -384,8 +397,10 @@ def card_line():
 
 def median_ms(fn, runs=TIMED_RUNS, warmup=3):
     """Median of per-call CUDA-event times, after warm-up. The calls are
-    queued back to back with no sync between them, so the host's work in
-    each call hides behind the device's work of the one before."""
+    queued back to back with no sync between them, so the host's work in a
+    call hides behind the device's work of the one before only where that
+    work is longer: for a kernel shorter than its Python wrapper, the events
+    measure the wrapper (``device_ms`` reads the kernel's own time)."""
     import torch
     for _ in range(warmup):
         fn()
@@ -399,6 +414,18 @@ def median_ms(fn, runs=TIMED_RUNS, warmup=3):
         events.append((start, end))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def device_ms(fn, match, runs=TIMED_RUNS, warmup=3):
+    """The device time of one call of ``fn``, which launches one kernel
+    whose name holds ``match``: the mean of its durations from
+    torch.profiler over ``runs`` calls queued back to back after warm-up
+    (``tools/ycc_bench.kernel_spans``)."""
+    from mvfnet_tpu_torch.tools.ycc_bench import kernel_spans
+    for _ in range(warmup):
+        fn()
+    spans = kernel_spans(fn, runs, match, launches=1)
+    return sum(e - s for s, e in spans) / len(spans) / 1e3
 
 
 def phase_build():
@@ -485,6 +512,11 @@ def phase_kernel():
                         lambda: fb.bottleneck_eval_cuda(*args))
                     plain_ms = median_ms(
                         lambda: fb.bottleneck_eval_plain(*args))
+                if name in DEVICE_TIMED:
+                    with torch.inference_mode():
+                        kernel_device_ms = device_ms(
+                            lambda: fb.bottleneck_eval_cuda(*args),
+                            'fused_bottleneck')
                 rec = dict(
                     KERNEL, case=name, shape=list(shape) + [cm],
                     dtype=dtype_name,
@@ -493,6 +525,8 @@ def phase_kernel():
                     bound_ms=max(t_ops, t_bytes),
                     bound_by='bytes' if t_bytes >= t_ops else 'operations',
                     flops=flops, bytes=nbytes, library_ms=None)
+                if name in DEVICE_TIMED:
+                    rec['device_ms'] = kernel_device_ms
                 print('kernel check: ' + json.dumps(rec))
                 require(ok, f'fused_bottleneck {name} {dtype_name}: max abs '
                             f'err {err} > tol {tol}')
@@ -3669,17 +3703,27 @@ def _frame_paths(root, video, inds):
 
 def _decode_compare(root, loader):
     """(b) nvJPEG against cv2.imdecode on every frame of the set and on
-    each JPEG kind; a video's batch against its single decodes."""
+    each JPEG kind; the ycc_to_bgr kernel's frames against its plain
+    version on the planes nvJPEG decoded; a video's batch against its
+    single decodes."""
     import tempfile
 
     import numpy as np
+    import torch
+    from mvfnet_tpu_torch.data import native_io
     from mvfnet_tpu_torch.tools.jpeg_kinds import (compare, cv2_decode, diff,
                                                    write_kinds)
-    stats, single_equal = [], None
+    stats, single_equal, plain_equal = [], None, 0
     for v in range(DATA_VIDEOS):
         paths = _frame_paths(root, v, range(DATA_FRAMES))
-        got = loader.load_batch(paths)
+        got = loader.load_batch_planes(paths)
         require(got is not None, f'nvJPEG refused a frame of video_{v}')
+        got, planes = got
+        for g, (y, cb, cr, hf, vf) in zip(got, planes):
+            want = native_io.ycc_to_bgr_plain(
+                *(None if p is None else torch.from_numpy(p).cuda()
+                  for p in (y, cb, cr)), hf, vf)
+            plain_equal += bool(np.array_equal(g, want.cpu().numpy()))
         stats += [diff(g, cv2_decode(p)) for p, g in zip(paths, got)]
         if v == 0:
             single_equal = all(np.array_equal(g, loader.load(p))
@@ -3692,11 +3736,15 @@ def _decode_compare(root, loader):
                                                for s in stats))
     print('decode: ' + json.dumps(dict(
         compare='nvjpeg vs cv2.imdecode', frames=len(stats),
-        frame_stats=frames, video_batch_equals_single=single_equal,
+        frame_stats=frames, kernel_equals_plain_frames=plain_equal,
+        video_batch_equals_single=single_equal,
         kinds=kinds, bounds=dict(mean_abs=DECODE_MEAN_ABS,
                                  max_abs=DECODE_MAX_ABS),
         card=card_line())))
     require(single_equal, 'nvJPEG: a batch differs from its single decodes')
+    require(plain_equal == len(stats),
+            f'ycc_to_bgr: {len(stats) - plain_equal} of {len(stats)} decoded '
+            f'frames differ from its plain version on their planes')
     for name, d in [('frames', frames)] + list(kinds.items()):
         require(d['mean_abs'] <= DECODE_MEAN_ABS
                 and d['max_abs'] <= DECODE_MAX_ABS,
@@ -3749,7 +3797,7 @@ def _decode_ms(root, ann, loader):
 def _decode_cli(root, ann):
     """(d) the test CLI on nvJPEG and on cv2 frames, with host and device
     normalization; returns the fused launches by case and the ycc_to_bgr
-    launches of each case."""
+    kernel's launches, frames converted and decode calls of each case."""
     import contextlib
     import io
     import pickle
@@ -3777,14 +3825,18 @@ def _decode_cli(root, ann):
             torch.cuda.synchronize()
             fb.bottleneck_eval_cuda.launches = 0
             fb.bottleneck_eval_cuda.launches_by_shape.clear()
-            native_io.ycc_to_bgr.launches = 0
+            native_io.ycc_to_bgr.launches = native_io.ycc_to_bgr.frames = 0
+            native_io.NativeImageLoader.decode_calls = 0
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(io.StringIO()):
                 res = cli.main(argv)
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
             fused[case] = dict(fb.bottleneck_eval_cuda.launches_by_shape)
-            ycc[case] = native_io.ycc_to_bgr.launches
+            ycc[case] = dict(launches=native_io.ycc_to_bgr.launches,
+                             frames=native_io.ycc_to_bgr.frames,
+                             decode_calls=native_io.NativeImageLoader
+                             .decode_calls)
             with open(out, 'rb') as f:
                 rows[case] = np.stack(pickle.load(f))
             prof = device_profile(lambda: _quiet(cli.main, argv))
@@ -3798,7 +3850,7 @@ def _decode_cli(root, ann):
                 device_idle_share=prof['idle_share'],
                 fused_launches={'x'.join(map(str, k[1:])): v
                                 for k, v in fused[case].items()},
-                ycc_to_bgr_launches=ycc[case])
+                ycc_to_bgr=ycc[case])
             require(res['decoder'] == ('nvjpeg' if dec == 'nvjpeg'
                                        else 'cv2.imdecode'),
                     f'decode {case}: decoder {res["decoder"]}')
@@ -3808,8 +3860,16 @@ def _decode_cli(root, ann):
             require(fused[case] == expected,
                     f'decode {case}: fused launches {fused[case]}, '
                     f'expected {expected}')
-            require(ycc[case] == (frames if dec == 'nvjpeg' else 0),
-                    f'decode {case}: ycc_to_bgr launched {ycc[case]} times')
+            # every frame decoded on nvJPEG converted by the kernel, in one
+            # launch a decode call
+            require(ycc[case]['frames'] == (frames if dec == 'nvjpeg'
+                                            else 0),
+                    f'decode {case}: ycc_to_bgr converted '
+                    f'{ycc[case]["frames"]} frames, not {frames}')
+            require(ycc[case]['launches'] == ycc[case]['decode_calls'],
+                    f'decode {case}: ycc_to_bgr launched '
+                    f'{ycc[case]["launches"]} times in '
+                    f'{ycc[case]["decode_calls"]} decode calls')
         err = float(np.abs(rows[f'{norm}_nvjpeg']
                            - rows[f'{norm}_cv2']).max())
         tol = DECODE_TOL * float(np.abs(rows[f'{norm}_cv2']).max())
@@ -3930,35 +3990,54 @@ def _orbax(root):
 
 
 def _ycc_record(launches):
-    """The ycc_to_bgr kernel on a frame's planes at the set's size (4:2:0,
-    as cv2 writes it) against its plain version on the card, timed with
-    both; its bound is the bytes (the planes read, BGR written; about 40
-    integer operations a pixel on the 67 TFLOP/s of the non-tensor units
-    take less)."""
+    """The ycc_to_bgr kernel on a decode call's frames at the set's size (a
+    dense-test video's 80 frames, 4:2:0 as cv2 writes them) against its
+    plain version on the card: ``tools/ycc_bench.record``'s device time
+    from the profiler, CUDA events over back-to-back launches and a CUDA
+    graph's replays, and the bound (bytes: the planes read, BGR written;
+    some 20 integer operations a pixel on the 67 TFLOP/s of the non-tensor
+    units take less); the wrapper's and the plain version's event times;
+    the same for one frame."""
     import torch
+    from mvfnet_tpu_torch.config import Config
     from mvfnet_tpu_torch.data import native_io as nio
-    h, w = DATA_HW
-    ch, cw = (h + 1) // 2, (w + 1) // 2
-    g = torch.Generator(device='cuda').manual_seed(13)
-    planes = [torch.randint(0, 256, s, generator=g, device='cuda',
-                            dtype=torch.uint8)
-              for s in ((h, w), (ch, cw), (ch, cw))]
-    before = nio.ycc_to_bgr.launches
-    got = nio.ycc_to_bgr(*planes, 2, 2)
-    want = nio.ycc_to_bgr_plain(*planes, 2, 2)
-    err = int((got.int() - want.int()).abs().max())
-    ms = median_ms(lambda: nio.ycc_to_bgr(*planes, 2, 2))
-    plain_ms = median_ms(lambda: nio.ycc_to_bgr_plain(*planes, 2, 2))
-    nio.ycc_to_bgr.launches = before          # comparisons do not count
-    nbytes = h * w + 2 * ch * cw + 3 * h * w
-    bound_ms = max(nbytes / PEAK_BYTES, 40 * h * w / PEAK_FLOPS['float32']) \
-        * 1e3
-    require(err == 0, f'ycc_to_bgr vs plain: max abs err {err}')
-    return dict(YCC_KERNEL, shape=[h, w, 2, 2],
-                launches=launches['device_norm_nvjpeg'],
+    from mvfnet_tpu_torch.tools import ycc_bench
+    sample = Config.fromfile(CONFIG).data['test']['pipeline'][0]
+    n = sample['clip_len'] * sample['num_clips']
+    frames = ycc_bench.planes(n, *DATA_HW)
+    lib = nio.library()
+    before = (nio.ycc_to_bgr.launches, nio.ycc_to_bgr.frames)
+    bench = ycc_bench.record('committed', lib, frames, runs=50)
+    batch = [f + (2, 2) for f in frames]
+    got = nio.ycc_to_bgr_batch(batch)
+    err = max(int((g.int() - w.int()).abs().max()) for g, w in
+              zip(got, nio.ycc_to_bgr_batch_plain(batch)))
+    ms = median_ms(lambda: nio.ycc_to_bgr_batch(batch))
+    plain_ms = median_ms(lambda: nio.ycc_to_bgr_batch_plain(batch), runs=5)
+    one = batch[:1]
+    one_bench = ycc_bench.record('committed', lib, frames[:1], runs=50)
+    one_frame = dict(
+        shape=list(DATA_HW) + [2, 2], device_ms=one_bench['device_ms'],
+        event_ms=one_bench['event_ms'], graph_ms=one_bench['graph_ms'],
+        ms=median_ms(lambda: nio.ycc_to_bgr_batch(one)),
+        plain_ms=median_ms(lambda: nio.ycc_to_bgr_batch_plain(one)),
+        bound_ms=one_bench['bound_ms'])
+    # comparisons do not count
+    nio.ycc_to_bgr.launches, nio.ycc_to_bgr.frames = before
+    torch.cuda.synchronize()
+    require(err == 0 and bench['equal'] and one_bench['equal'],
+            f'ycc_to_bgr vs plain: max abs err {err}, bench equal '
+            f'{bench["equal"]}, one frame {one_bench["equal"]}')
+    case = launches['device_norm_nvjpeg']
+    return dict(YCC_KERNEL, shape=[n] + list(DATA_HW) + [2, 2],
+                launches=case['launches'], frames=case['frames'],
                 launches_decode=launches, max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by='bytes',
-                library_ms=None, card=card_line())
+                device_ms=bench['device_ms'],
+                device_span_ms=bench['device_span_ms'],
+                event_ms=bench['event_ms'], graph_ms=bench['graph_ms'],
+                plain_ms=plain_ms, bound_ms=bench['bound_ms'],
+                bound_by='bytes', share_of_bound=bench['share_of_bound'],
+                library_ms=None, one_frame=one_frame, card=card_line())
 
 
 def phase_decode(root, ann):

@@ -4,13 +4,16 @@
 The JAX package decodes a clip's JPEGs in one call to its C++ worker
 (``native/jpeg_decoder.cpp``: libjpeg on a thread pool). Here one call to
 ``csrc/nvjpeg_decode.cu`` decodes them with nvJPEG's batched API on a CUDA
-stream into their Y, Cb and Cr planes, turns each into BGR with the
-``ycc_to_bgr`` kernel (libjpeg's chroma upsampling and colour conversion,
-so that frames agree with cv2's), then copies them to the host once: HWC
+stream into their Y, Cb and Cr planes, turns them into BGR with one launch
+of the ``ycc_to_bgr`` kernel (libjpeg's chroma upsampling and colour
+conversion, so that frames agree with cv2's), then copies them to the
+host once: HWC
 uint8 BGR, full size, as cv2 and the JAX worker give them.
 ``FrameSelector`` uses it when its dataset is built for a CUDA device; on
 the CPU frames decode with ``cv2.imdecode``, the plain version of the
-whole worker. ``ycc_to_bgr_plain`` is the kernel's own plain version.
+whole worker. ``ycc_to_bgr_batch`` runs the kernel alone on planes on the
+card, ``ycc_to_bgr_batch_plain`` and ``ycc_to_bgr_plain`` are its plain
+versions.
 
 The header probe parses the JPEG's SOF segment in Python, as libjpeg's
 ``jpeg_read_header`` reads it, so that every buffer is sized before the
@@ -51,12 +54,16 @@ _SIGNATURES = {
     'mvf_nvjpeg_decode_batch': (
         [_P, ctypes.POINTER(_P), ctypes.POINTER(ctypes.c_size_t),
          ctypes.c_int, ctypes.POINTER(_P), _INT_P, _INT_P, _INT_P, _INT_P,
-         ctypes.c_char_p, ctypes.c_int], ctypes.c_int),
+         _INT_P, ctypes.c_char_p, ctypes.c_int], ctypes.c_int),
     'mvf_nvjpeg_decode': ([_P, _P, ctypes.c_size_t, _P, ctypes.c_int,
-                           ctypes.c_int, _INT_P, ctypes.c_char_p,
+                           ctypes.c_int, _INT_P, _INT_P, ctypes.c_char_p,
                            ctypes.c_int], ctypes.c_int),
-    'mvf_ycc_to_bgr': ([_P, ctypes.c_int, _P, _P] + [ctypes.c_int] * 7
-                       + [_P, _P], ctypes.c_int),
+    'mvf_nvjpeg_last_planes': ([_P, ctypes.c_int, _P, _P, _P, _INT_P, _INT_P,
+                                ctypes.c_char_p, ctypes.c_int], ctypes.c_int),
+    'mvf_ycc_frame_bytes': ([], ctypes.c_int),
+    'mvf_ycc_table': ([ctypes.c_int] + [ctypes.POINTER(_P)] * 4
+                      + [_INT_P] * 4 + [_P], ctypes.c_int),
+    'mvf_ycc_launch': ([_P, ctypes.c_int, ctypes.c_int, _P], ctypes.c_int),
 }
 
 # SOF markers libjpeg decodes: baseline, extended, progressive, and the
@@ -205,49 +212,108 @@ def ycc_to_bgr_plain(y: torch.Tensor, cb: Optional[torch.Tensor] = None,
     return bgr.clamp(0, 255).to(torch.uint8)
 
 
-_launch_lock = threading.Lock()
+def ycc_to_bgr_batch_plain(frames: Sequence[Tuple]) -> List[torch.Tensor]:
+    """``ycc_to_bgr_batch``'s plain version: ``ycc_to_bgr_plain`` on each
+    ``(y, cb, cr, hf, vf)`` of ``frames``."""
+    return [ycc_to_bgr_plain(*f) for f in frames]
 
 
-def _count_launches(n: int) -> None:
-    with _launch_lock:
-        ycc_to_bgr.launches += n
+_count_lock = threading.Lock()
+
+
+def _count(launches: int, frames: int, decode_calls: int = 0) -> None:
+    with _count_lock:
+        ycc_to_bgr.launches += launches
+        ycc_to_bgr.frames += frames
+        NativeImageLoader.decode_calls += decode_calls
+
+
+def frame_table(lib: ctypes.CDLL, frames: Sequence[Tuple],
+                outs: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, int]:
+    """The kernel's table of ``frames`` (``(y, cb, cr, hf, vf)`` on the
+    card, ``cb`` and ``cr`` None for grayscale) into ``outs``, as
+    ``mvf_ycc_table`` lays it out, in a uint8 CPU tensor, and the launch's
+    tiles."""
+    n = len(frames)
+
+    def ptrs(ts):
+        return (_P * n)(*[None if t is None else t.data_ptr() for t in ts])
+
+    def ints(xs):
+        return (ctypes.c_int * n)(*xs)
+    table = torch.empty(n * lib.mvf_ycc_frame_bytes(), dtype=torch.uint8)
+    tiles = lib.mvf_ycc_table(
+        n, ptrs([f[0] for f in frames]), ptrs([f[1] for f in frames]),
+        ptrs([f[2] for f in frames]), ptrs(outs),
+        ints([f[0].shape[0] for f in frames]),
+        ints([f[0].shape[1] for f in frames]),
+        ints([f[3] for f in frames]), ints([f[4] for f in frames]),
+        table.data_ptr())
+    if tiles < 0:
+        raise ValueError('ycc_to_bgr: a subsampling the kernel does not take '
+                         f'in {[f[3:] for f in frames]}')
+    return table, tiles
+
+
+def _check_planes(y, cb, cr, hf, vf) -> None:
+    h, w = y.shape
+    if cb is not None:
+        if tuple(cb.shape) != (-(-h // vf), -(-w // hf)) \
+                or cr is None or cr.shape != cb.shape:
+            raise ValueError(f'chroma planes {tuple(cb.shape)} and '
+                             f'{None if cr is None else tuple(cr.shape)} '
+                             f'for ({h}, {w}) at {hf}x{vf}')
+    for p in (y, cb, cr):
+        if p is not None and (p.dtype != torch.uint8 or p.device != y.device
+                              or not p.is_contiguous()):
+            raise ValueError('ycc_to_bgr takes contiguous uint8 planes on '
+                             'one device')
+
+
+def ycc_to_bgr_batch(frames: Sequence[Tuple]) -> List[torch.Tensor]:
+    """``ycc_to_bgr_batch_plain``'s function: BGR (h, w, 3) uint8 of each
+    ``(y, cb, cr, hf, vf)`` of ``frames`` (any mix of sizes, subsamplings
+    and grayscale, ``cb`` and ``cr`` None). On CUDA tensors one launch of
+    the ``ycc_to_bgr`` kernel of ``csrc/nvjpeg_decode.cu`` over all of them
+    (on the current stream), on CPU tensors the plain version.
+    ``ycc_to_bgr.launches`` counts the kernel's launches and
+    ``ycc_to_bgr.frames`` the frames they convert, here and inside the
+    decoder's calls."""
+    frames = [tuple(f) for f in frames]
+    if not frames:
+        return []
+    device = frames[0][0].device
+    if device.type == 'cpu':
+        return ycc_to_bgr_batch_plain(frames)
+    for f in frames:
+        if f[0].device != device:
+            raise ValueError('ycc_to_bgr_batch takes frames on one device')
+        _check_planes(*f)
+    outs = [torch.empty(f[0].shape + (3,), dtype=torch.uint8, device=device)
+            for f in frames]
+    from ..ops import _cuda
+    lib = library()
+    table, tiles = frame_table(lib, frames, outs)
+    # pinned, so that the copy queues on the stream like the launch
+    table = table.pin_memory().to(device, non_blocking=True)
+    err = lib.mvf_ycc_launch(table.data_ptr(), len(frames), tiles,
+                             torch.cuda.current_stream(device).cuda_stream)
+    _cuda.check(err, 'ycc_to_bgr')
+    _count(1, len(frames))
+    return outs
 
 
 def ycc_to_bgr(y: torch.Tensor, cb: Optional[torch.Tensor] = None,
                cr: Optional[torch.Tensor] = None, hf: int = 1,
                vf: int = 1) -> torch.Tensor:
-    """``ycc_to_bgr_plain``'s function: on CUDA tensors the
-    ``ycc_to_bgr`` kernel of ``csrc/nvjpeg_decode.cu`` (on the current
-    stream), on CPU tensors the plain version. ``ycc_to_bgr.launches``
-    counts the kernel's launches, here and inside the decoder's calls."""
-    if y.device.type == 'cpu':
-        return ycc_to_bgr_plain(y, cb, cr, hf, vf)
-    h, w = y.shape
-    planes = [y] + ([] if cb is None else [cb, cr])
-    cw = ch = 0
-    if cb is not None:
-        ch, cw = cb.shape
-        if (ch, cw) != (-(-h // vf), -(-w // hf)) or cr.shape != cb.shape:
-            raise ValueError(f'chroma planes {tuple(cb.shape)} and '
-                             f'{tuple(cr.shape)} for ({h}, {w}) at '
-                             f'{hf}x{vf}')
-    for p in planes:
-        if p.dtype != torch.uint8 or p.device != y.device \
-                or not p.is_contiguous():
-            raise ValueError('ycc_to_bgr takes contiguous uint8 planes on '
-                             'one device')
-    out = torch.empty((h, w, 3), dtype=torch.uint8, device=y.device)
-    from ..ops import _cuda
-    err = library().mvf_ycc_to_bgr(
-        y.data_ptr(), w, None if cb is None else cb.data_ptr(),
-        None if cr is None else cr.data_ptr(), cw, w, h, cw, ch, hf, vf,
-        out.data_ptr(), torch.cuda.current_stream(y.device).cuda_stream)
-    _cuda.check(err, 'ycc_to_bgr')
-    _count_launches(1)
-    return out
+    """``ycc_to_bgr_plain``'s function on one frame: ``ycc_to_bgr_batch``
+    of it (on CUDA tensors one launch of the kernel, on CPU tensors the
+    plain version)."""
+    return ycc_to_bgr_batch([(y, cb, cr, hf, vf)])[0]
 
 
 ycc_to_bgr.launches = 0
+ycc_to_bgr.frames = 0
 
 
 class NvjpegError(RuntimeError):
@@ -308,7 +374,11 @@ class NativeImageLoader:
     Anything else that fails (the build, CUDA, nvJPEG) raises
     ``NvjpegError``. At most ``num_threads`` threads decode through one
     loader at once (by default the JAX worker's ``min(cores, 8)``), each
-    with a context of its own."""
+    with a context of its own. ``NativeImageLoader.decode_calls`` counts
+    the calls that decoded, over every loader (each launches the
+    ``ycc_to_bgr`` kernel once)."""
+
+    decode_calls = 0
 
     def __init__(self, device, num_threads: Optional[int] = None):
         device = torch.device(device)
@@ -342,12 +412,13 @@ class NativeImageLoader:
         h, w, _ = shape
         out = np.empty((h, w, 3), np.uint8)
         buf = np.frombuffer(data, np.uint8)
-        msg, launches = ctypes.create_string_buffer(256), ctypes.c_int()
+        msg = ctypes.create_string_buffer(256)
+        launches, frames = ctypes.c_int(), ctypes.c_int()
         with self._slots, self._pool.context() as ctx:
             rc = self._pool.lib.mvf_nvjpeg_decode(
                 ctx, buf.ctypes.data, len(data), out.ctypes.data, h, w,
-                ctypes.byref(launches), msg, len(msg))
-        _count_launches(launches.value)
+                ctypes.byref(launches), ctypes.byref(frames), msg, len(msg))
+        _count(launches.value, frames.value, rc == 0)
         if rc != 0:
             self._raise_unless_bitstream(rc, msg)
             return None
@@ -357,6 +428,33 @@ class NativeImageLoader:
         """A clip's JPEGs in one batched nvJPEG call; None if any file does
         not probe or any image's bitstream fails (the caller then goes
         frame by frame)."""
+        return self._load_batch(paths, planes=False)
+
+    def load_batch_planes(self, paths: Sequence[str]):
+        """``load_batch``'s frames, and each frame's decoded planes as the
+        ``ycc_to_bgr`` kernel read them, ``(y, cb, cr, hf, vf)`` uint8
+        arrays (``cb``, ``cr`` None for grayscale), for checks of the
+        kernel against its plain version; None where ``load_batch`` gives
+        None."""
+        return self._load_batch(paths, planes=True)
+
+    def _planes(self, ctx, i: int, h: int, w: int) -> Tuple:
+        y, cb, cr = (np.empty(h * w, np.uint8) for _ in range(3))
+        hf, vf = ctypes.c_int(), ctypes.c_int()
+        msg = ctypes.create_string_buffer(256)
+        rc = self._pool.lib.mvf_nvjpeg_last_planes(
+            ctx, i, y.ctypes.data, cb.ctypes.data, cr.ctypes.data,
+            ctypes.byref(hf), ctypes.byref(vf), msg, len(msg))
+        if rc != 0:
+            raise NvjpegError(f'nvJPEG planes on cuda:{self.index}: '
+                              f'{msg.value.decode()}')
+        if hf.value == 0:
+            return y.reshape(h, w), None, None, 1, 1
+        ch, cw = -(-h // vf.value), -(-w // hf.value)
+        return (y.reshape(h, w), cb[:ch * cw].reshape(ch, cw),
+                cr[:ch * cw].reshape(ch, cw), hf.value, vf.value)
+
+    def _load_batch(self, paths: Sequence[str], planes: bool):
         datas = [_read(p) for p in paths]
         shapes = [parse_header(d) if d is not None else None for d in datas]
         if not paths or any(s is None for s in shapes):
@@ -370,13 +468,17 @@ class NativeImageLoader:
         c_hs = (ctypes.c_int * n)(*[s[0] for s in shapes])
         c_ws = (ctypes.c_int * n)(*[s[1] for s in shapes])
         status = (ctypes.c_int * n)()
-        msg, launches = ctypes.create_string_buffer(256), ctypes.c_int()
+        msg = ctypes.create_string_buffer(256)
+        launches, frames = ctypes.c_int(), ctypes.c_int()
         with self._slots, self._pool.context() as ctx:
             rc = self._pool.lib.mvf_nvjpeg_decode_batch(
                 ctx, c_datas, c_lens, n, c_outs, c_hs, c_ws, status,
-                ctypes.byref(launches), msg, len(msg))
-        _count_launches(launches.value)
+                ctypes.byref(launches), ctypes.byref(frames), msg, len(msg))
+            got = ([self._planes(ctx, i, h, w)
+                    for i, (h, w, _) in enumerate(shapes)]
+                   if planes and rc == 0 else None)
+        _count(launches.value, frames.value, rc == 0)
         if rc != 0:
             self._raise_unless_bitstream(rc, msg)
             return None
-        return outs
+        return (outs, got) if planes else outs

@@ -70,6 +70,7 @@ def test_import_loads_no_jax_triton_or_kernel():
         'import mvfnet_tpu_torch.utils.orbax_io\n'
         'import mvfnet_tpu_torch.data.native_io\n'
         'import mvfnet_tpu_torch.tools.jpeg_kinds\n'
+        'import mvfnet_tpu_torch.tools.ycc_bench\n'
         'import mvfnet_tpu_torch.parallel, mvfnet_tpu_torch.parallel.dist\n'
         'import mvfnet_tpu_torch.parallel.launch\n'
         'import mvfnet_tpu_torch.data.video_io\n'

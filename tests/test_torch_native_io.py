@@ -270,6 +270,54 @@ def test_ycc_to_bgr_plain_is_libjpegs(h, w, hf, vf):
     np.testing.assert_array_equal(gray, np.repeat(y[..., None], 3, -1))
 
 
+# one decode call's worth of frames of every kind: (h, w, hf, vf), hf 0 for
+# grayscale; 5 x 4 and 6 x 3 take box upsampling (chroma 2 samples wide)
+MIXED = [(256, 455, 2, 2), (37, 53, 2, 2), (37, 53, 2, 1), (37, 53, 1, 2),
+         (37, 53, 1, 1), (37, 53, 4, 1), (37, 53, 4, 2), (5, 4, 2, 2),
+         (6, 3, 2, 2), (70, 300, 2, 1), (33, 17, 0, 0)]
+
+
+def _mixed_batch(offset=0):
+    """MIXED's frames as ``(y, cb, cr, hf, vf)`` of seeded uint8 planes on
+    the CPU; with ``offset``, each plane starts ``offset`` + its index bytes
+    into a larger buffer (planes at every alignment)."""
+    rs = np.random.RandomState(15)
+
+    def plane(h, w, i):
+        start = (offset + i) % 16 if offset else 0
+        data = rs.randint(0, 256, h * w + start).astype(np.uint8)
+        return torch.from_numpy(data)[start:].view(h, w)
+    frames = []
+    for i, (h, w, hf, vf) in enumerate(MIXED):
+        if hf == 0:
+            frames.append((plane(h, w, i), None, None, 1, 1))
+        else:
+            ch, cw = -(-h // vf), -(-w // hf)
+            frames.append((plane(h, w, i), plane(ch, cw, i + 1),
+                           plane(ch, cw, i + 2), hf, vf))
+    return frames
+
+
+def test_batch_plain_is_per_frame_and_libjpegs():
+    frames = _mixed_batch()
+    launches = native_io.ycc_to_bgr.launches
+    got = native_io.ycc_to_bgr_batch(frames)
+    assert native_io.ycc_to_bgr.launches == launches   # the CPU launches none
+    assert len(got) == len(frames)
+    for (y, cb, cr, hf, vf), g in zip(frames, got):
+        np.testing.assert_array_equal(
+            g.numpy(), native_io.ycc_to_bgr_plain(y, cb, cr, hf, vf).numpy())
+        if cb is None:
+            want = np.repeat(y.numpy()[..., None], 3, -1)
+        else:
+            h, w = y.shape
+            want = _libjpeg_ycc_to_bgr(
+                y.numpy(), _libjpeg_upsample(cb.numpy(), h, w, hf, vf),
+                _libjpeg_upsample(cr.numpy(), h, w, hf, vf))
+        np.testing.assert_array_equal(g.numpy(), want)
+    assert native_io.ycc_to_bgr_batch([]) == []
+
+
 # ----------------------------------------------------------------- card
 
 @pytest.fixture
@@ -309,6 +357,50 @@ def test_ycc_to_bgr_kernel_equals_plain(cuda, h, w, hf, vf):
         got.cpu().numpy(), native_io.ycc_to_bgr_plain(*planes, hf, vf).numpy())
     np.testing.assert_array_equal(
         gray.cpu().numpy(), native_io.ycc_to_bgr_plain(planes[0]).numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('offset', [0, 5])
+def test_ycc_to_bgr_batch_kernel_equals_plain(cuda, offset):
+    frames = _mixed_batch(offset)
+    on_card = [tuple(p.cuda() if isinstance(p, torch.Tensor) else p
+                     for p in f) for f in frames]
+    launches = native_io.ycc_to_bgr.launches
+    converted = native_io.ycc_to_bgr.frames
+    got = native_io.ycc_to_bgr_batch(on_card)
+    torch.cuda.synchronize()
+    assert native_io.ycc_to_bgr.launches == launches + 1
+    assert native_io.ycc_to_bgr.frames == converted + len(frames)
+    for f, g, shape in zip(frames, got, MIXED):
+        np.testing.assert_array_equal(
+            g.cpu().numpy(), native_io.ycc_to_bgr_plain(*f).numpy(),
+            err_msg=str(shape))
+
+
+@pytest.mark.cuda
+def test_decode_call_launches_once(cuda, kinds):
+    paths = [kinds[k] for k in sorted(KINDS) if k != 'gray']
+    for load, n in ((lambda: cuda.load_batch(paths), len(paths)),
+                    (lambda: cuda.load(paths[0]), 1)):
+        launches = native_io.ycc_to_bgr.launches
+        converted = native_io.ycc_to_bgr.frames
+        calls = native_io.NativeImageLoader.decode_calls
+        assert load() is not None
+        assert native_io.ycc_to_bgr.launches == launches + 1
+        assert native_io.ycc_to_bgr.frames == converted + n
+        assert native_io.NativeImageLoader.decode_calls == calls + 1
+
+
+@pytest.mark.cuda
+def test_decoded_planes_convert_as_plain(cuda, kinds):
+    colour = [kinds[k] for k in sorted(KINDS) if k != 'gray']
+    for paths in (colour, [kinds['gray']] * 2):
+        frames, planes = cuda.load_batch_planes(paths)
+        for frame, (y, cb, cr, hf, vf) in zip(frames, planes):
+            want = native_io.ycc_to_bgr_plain(
+                *(None if p is None else torch.from_numpy(p)
+                  for p in (y, cb, cr)), hf, vf)
+            np.testing.assert_array_equal(frame, want.numpy())
 
 
 @pytest.mark.cuda
