@@ -560,19 +560,30 @@ def _kernel_kind(name):
     return 'elementwise/copy'
 
 
-def device_profile(fn):
+def device_profile(fn, spans=False):
     """Device time of one call by kernel kind, from torch.profiler: kernel
     time summed, the union of kernel intervals, and the call's host-clock
-    wall time (its complement is the device's idle share)."""
+    wall time (its complement is the device's idle share). With ``spans``
+    the port's spans are on during the call, so that its ranges (the
+    ``int8_`` quantize passes) reach the profiler."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from mvfnet_tpu_torch.utils import tracing
+    was_on = tracing.enabled()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        if spans:
+            tracing.enable()
         t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
+        try:
+            fn()
+            torch.cuda.synchronize()
+        finally:
+            if spans and not was_on:
+                tracing.disable()
+                tracing.clear()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # device kernels and copies, not the device-side ranges of annotations
     # such as the optimizer's record_function
@@ -980,18 +991,23 @@ def run_cli(config, ckpt, out):
     return buf.getvalue()
 
 
-class _TimedOp:
-    """A pipeline op that appends its ms per call to ``log[name]``."""
-
-    def __init__(self, op, log):
-        self.op, self.log = op, log
-
-    def __call__(self, results):
-        t0 = time.perf_counter()
-        out = self.op(results)
-        self.log.setdefault(type(self.op).__name__, []).append(
-            (time.perf_counter() - t0) * 1e3)
-        return out
+def pipeline_op_ms(fn):
+    """Run ``fn`` with the port's spans on; the ms of each pipeline op's
+    calls (the ``data.op.<Op>`` spans), by op."""
+    from mvfnet_tpu_torch.utils import tracing
+    tracing.clear()
+    tracing.enable()
+    try:
+        fn()
+    finally:
+        tracing.disable()
+    log = {}
+    for s in tracing.collect():
+        if s['name'].startswith('data.op.'):
+            log.setdefault(s['name'][len('data.op.'):], []).append(
+                (s['end_ns'] - s['start_ns']) / 1e6)
+    tracing.clear()
+    return log
 
 
 def numpy_accuracy(scores, labels):
@@ -1105,26 +1121,29 @@ def phase_data(root, ann):
         decoder = dataset_decoder(dataset)
         step = make_eval_step(model, norm_cfg=device_norm_cfg(
             cfg.data['test']['pipeline']))
-        op_ms, item_ms, direct, pinned = {}, [], [], None
-        ops = dataset.pipeline.transforms
-        dataset.pipeline.transforms = [_TimedOp(t, op_ms) for t in ops]
-        for i in range(DATA_VIDEOS):
-            t1 = time.perf_counter()
-            sample = dataset[i]
-            item_ms.append((time.perf_counter() - t1) * 1e3)
+        copy_ms, item_ms, direct, samples = {}, [], [], []
+
+        def items():
+            for i in range(DATA_VIDEOS):
+                t1 = time.perf_counter()
+                samples.append(dataset[i])
+                item_ms.append((time.perf_counter() - t1) * 1e3)
+        op_ms = pipeline_op_ms(items)
+        pinned = None
+        for sample in samples:
             t1 = time.perf_counter()
             batch = default_collate([sample])['img_group']
-            op_ms.setdefault('collate', []).append(
+            copy_ms.setdefault('collate', []).append(
                 (time.perf_counter() - t1) * 1e3)
             if pinned is None:
                 pinned = torch.empty(batch.shape, pin_memory=True,
                                      dtype=torch.from_numpy(batch).dtype)
             t1 = time.perf_counter()
             pinned.numpy()[...] = batch
-            op_ms.setdefault('pinned_copy', []).append(
+            copy_ms.setdefault('pinned_copy', []).append(
                 (time.perf_counter() - t1) * 1e3)
             direct.append(step(model, batch).float().cpu().numpy()[0])
-        dataset.pipeline.transforms = ops
+        op_ms.update(copy_ms)
         err = float(np.abs(got - np.stack(direct)).max())
         require(err <= DATA_TOL, f'{case}: CLI scores vs eval step: max '
                                  f'abs err {err} > {DATA_TOL}')
@@ -1346,12 +1365,8 @@ def phase_train_cli(root):
         t1 = time.perf_counter()
         n = sum(len(b['img_group']) for b in loader)
         loader_s = time.perf_counter() - t1
-        op_ms = {}
-        ops = train.pipeline.transforms
-        train.pipeline.transforms = [_TimedOp(t, op_ms) for t in ops]
-        for i in range(DATA_VIDEOS):
-            train[i]
-        train.pipeline.transforms = ops
+        op_ms = pipeline_op_ms(lambda: [train[i]
+                                        for i in range(DATA_VIDEOS)])
 
         secs = [r['s'] for r in iters[1:]]
         med = statistics.median(secs)
@@ -3391,7 +3406,7 @@ def _int8_pass(name, model, video, norm, want, runs=INT8_RUNS):
     fused = _launches_by_shape() - before
     int8 = collections.Counter(q8.int8_conv_cuda.launches_by_shape)
     variants = dict(q8.int8_conv_cuda.launches_by_variant)
-    prof = device_profile(lambda: step(model, video))
+    prof = device_profile(lambda: step(model, video), spans=True)
     require('busy_ms' in prof, f'{name} profile: {prof}')
     require(bool(torch.isfinite(logits).all()), f'{name}: non-finite logits')
     med = statistics.median(secs)
@@ -3797,7 +3812,9 @@ def _decode_ms(root, ann, loader):
 def _decode_cli(root, ann):
     """(d) the test CLI on nvJPEG and on cv2 frames, with host and device
     normalization; returns the fused launches by case and the ycc_to_bgr
-    kernel's launches, frames converted and decode calls of each case."""
+    kernel's launches, frames converted and decode calls (the
+    ``decode.nvjpeg`` spans; every call of this set decodes) of each
+    case."""
     import contextlib
     import io
     import pickle
@@ -3808,6 +3825,7 @@ def _decode_cli(root, ann):
     from mvfnet_tpu_torch.data import native_io
     from mvfnet_tpu_torch.ops import fused_block as fb
     from mvfnet_tpu_torch.tools import test_recognizer as cli
+    from mvfnet_tpu_torch.utils import tracing
     ckpt = os.path.join(root, 'mvf_r50_random.pth')
     sample = Config.fromfile(CONFIG).data['test']['pipeline'][0]
     frames = DATA_VIDEOS * sample['clip_len'] * sample['num_clips']
@@ -3826,17 +3844,23 @@ def _decode_cli(root, ann):
             fb.bottleneck_eval_cuda.launches = 0
             fb.bottleneck_eval_cuda.launches_by_shape.clear()
             native_io.ycc_to_bgr.launches = native_io.ycc_to_bgr.frames = 0
-            native_io.NativeImageLoader.decode_calls = 0
+            tracing.clear()
+            tracing.enable()
             t0 = time.perf_counter()
-            with contextlib.redirect_stdout(io.StringIO()):
-                res = cli.main(argv)
-            torch.cuda.synchronize()
+            try:
+                with contextlib.redirect_stdout(io.StringIO()):
+                    res = cli.main(argv)
+                torch.cuda.synchronize()
+            finally:
+                tracing.disable()
             secs = time.perf_counter() - t0
             fused[case] = dict(fb.bottleneck_eval_cuda.launches_by_shape)
             ycc[case] = dict(launches=native_io.ycc_to_bgr.launches,
                              frames=native_io.ycc_to_bgr.frames,
-                             decode_calls=native_io.NativeImageLoader
-                             .decode_calls)
+                             decode_calls=sum(
+                                 s['name'] == 'decode.nvjpeg'
+                                 for s in tracing.collect()))
+            tracing.clear()
             with open(out, 'rb') as f:
                 rows[case] = np.stack(pickle.load(f))
             prof = device_profile(lambda: _quiet(cli.main, argv))

@@ -21,6 +21,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
+from ..utils import tracing
 from .builder import DATASETS
 from .pipeline import Compose
 
@@ -61,7 +62,8 @@ class BaseDataset(ABC):
         return len(self.video_infos)
 
     def __getitem__(self, idx: int):
-        return self.prepare_frames(idx)
+        with tracing.span('data.getitem', req=idx):
+            return self.prepare_frames(idx)
 
 
 def _frame_list(ann_file: str, data_root: Optional[str]

@@ -16,6 +16,7 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
+from ..utils import tracing
 from .sampler import ShardedSampler
 
 
@@ -96,7 +97,8 @@ class DataLoader:
             pos = 0
             batch: List[Dict[str, Any]] = []
             while pos < len(futures):
-                sample = futures[pos].result()
+                with tracing.span('loader.wait', req=indices[pos]):
+                    sample = futures[pos].result()
                 futures[pos] = None  # release memory
                 pos += 1
                 submit_next()
@@ -104,10 +106,14 @@ class DataLoader:
                     continue
                 batch.append(sample)
                 if len(batch) == self.batch_size:
-                    yield self.collate_fn(batch)
+                    yield self._collate(batch)
                     batch = []
             if batch and not self.drop_last:
-                yield self.collate_fn(batch)
+                yield self._collate(batch)
+
+    def _collate(self, batch: List[Dict[str, Any]]) -> Dict[str, Any]:
+        with tracing.span('loader.collate'):
+            return self.collate_fn(batch)
 
 
 def _raise_nofile_limit(min_limit: int = 4096) -> None:

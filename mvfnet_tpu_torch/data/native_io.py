@@ -33,6 +33,8 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils import tracing
+
 # what this worker is, in the pipeline's ``decoder`` names
 DECODER = 'nvjpeg'
 
@@ -221,11 +223,10 @@ def ycc_to_bgr_batch_plain(frames: Sequence[Tuple]) -> List[torch.Tensor]:
 _count_lock = threading.Lock()
 
 
-def _count(launches: int, frames: int, decode_calls: int = 0) -> None:
+def _count(launches: int, frames: int) -> None:
     with _count_lock:
         ycc_to_bgr.launches += launches
         ycc_to_bgr.frames += frames
-        NativeImageLoader.decode_calls += decode_calls
 
 
 def frame_table(lib: ctypes.CDLL, frames: Sequence[Tuple],
@@ -374,11 +375,10 @@ class NativeImageLoader:
     Anything else that fails (the build, CUDA, nvJPEG) raises
     ``NvjpegError``. At most ``num_threads`` threads decode through one
     loader at once (by default the JAX worker's ``min(cores, 8)``), each
-    with a context of its own. ``NativeImageLoader.decode_calls`` counts
-    the calls that decoded, over every loader (each launches the
-    ``ycc_to_bgr`` kernel once)."""
-
-    decode_calls = 0
+    with a context of its own. Each call that decodes launches the
+    ``ycc_to_bgr`` kernel once (``ycc_to_bgr.launches``). With tracing on,
+    ``decode.read`` spans the file reads and header parses and
+    ``decode.nvjpeg`` the library call (``frames``, JPEG ``bytes``)."""
 
     def __init__(self, device, num_threads: Optional[int] = None):
         device = torch.device(device)
@@ -405,8 +405,9 @@ class NativeImageLoader:
 
     def load(self, path: str) -> Optional[np.ndarray]:
         """One JPEG through nvJPEG's single-image API."""
-        data = _read(path)
-        shape = parse_header(data) if data is not None else None
+        with tracing.span('decode.read'):
+            data = _read(path)
+            shape = parse_header(data) if data is not None else None
         if shape is None:
             return None
         h, w, _ = shape
@@ -414,11 +415,12 @@ class NativeImageLoader:
         buf = np.frombuffer(data, np.uint8)
         msg = ctypes.create_string_buffer(256)
         launches, frames = ctypes.c_int(), ctypes.c_int()
-        with self._slots, self._pool.context() as ctx:
+        with self._slots, self._pool.context() as ctx, \
+                tracing.span('decode.nvjpeg', frames=1, bytes=len(data)):
             rc = self._pool.lib.mvf_nvjpeg_decode(
                 ctx, buf.ctypes.data, len(data), out.ctypes.data, h, w,
                 ctypes.byref(launches), ctypes.byref(frames), msg, len(msg))
-        _count(launches.value, frames.value, rc == 0)
+        _count(launches.value, frames.value)
         if rc != 0:
             self._raise_unless_bitstream(rc, msg)
             return None
@@ -455,15 +457,18 @@ class NativeImageLoader:
                 cr[:ch * cw].reshape(ch, cw), hf.value, vf.value)
 
     def _load_batch(self, paths: Sequence[str], planes: bool):
-        datas = [_read(p) for p in paths]
-        shapes = [parse_header(d) if d is not None else None for d in datas]
+        with tracing.span('decode.read'):
+            datas = [_read(p) for p in paths]
+            shapes = [parse_header(d) if d is not None else None
+                      for d in datas]
         if not paths or any(s is None for s in shapes):
             return None
         n = len(paths)
         outs = [np.empty((h, w, 3), np.uint8) for h, w, _ in shapes]
         bufs = [np.frombuffer(d, np.uint8) for d in datas]
         c_datas = (_P * n)(*[b.ctypes.data for b in bufs])
-        c_lens = (ctypes.c_size_t * n)(*[len(d) for d in datas])
+        lens = [len(d) for d in datas]
+        c_lens = (ctypes.c_size_t * n)(*lens)
         c_outs = (_P * n)(*[o.ctypes.data for o in outs])
         c_hs = (ctypes.c_int * n)(*[s[0] for s in shapes])
         c_ws = (ctypes.c_int * n)(*[s[1] for s in shapes])
@@ -471,13 +476,15 @@ class NativeImageLoader:
         msg = ctypes.create_string_buffer(256)
         launches, frames = ctypes.c_int(), ctypes.c_int()
         with self._slots, self._pool.context() as ctx:
-            rc = self._pool.lib.mvf_nvjpeg_decode_batch(
-                ctx, c_datas, c_lens, n, c_outs, c_hs, c_ws, status,
-                ctypes.byref(launches), ctypes.byref(frames), msg, len(msg))
+            with tracing.span('decode.nvjpeg', frames=n, bytes=sum(lens)):
+                rc = self._pool.lib.mvf_nvjpeg_decode_batch(
+                    ctx, c_datas, c_lens, n, c_outs, c_hs, c_ws, status,
+                    ctypes.byref(launches), ctypes.byref(frames), msg,
+                    len(msg))
             got = ([self._planes(ctx, i, h, w)
                     for i, (h, w, _) in enumerate(shapes)]
                    if planes and rc == 0 else None)
-        _count(launches.value, frames.value, rc == 0)
+        _count(launches.value, frames.value)
         if rc != 0:
             self._raise_unless_bitstream(rc, msg)
             return None

@@ -11,7 +11,19 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 
 from ..registry import build_from_cfg
+from ..utils import tracing
 from .builder import PIPELINES
+
+# span names of the ops, by type: built once, so that a call allocates none
+_OP_SPANS: Dict[type, str] = {}
+
+
+def _op_span(op) -> str:
+    kind = type(op)
+    name = _OP_SPANS.get(kind)
+    if name is None:
+        name = _OP_SPANS[kind] = 'data.op.' + kind.__name__
+    return name
 
 
 class Compose:
@@ -28,7 +40,8 @@ class Compose:
 
     def __call__(self, results):
         for t in self.transforms:
-            results = t(results)
+            with tracing.span(_op_span(t)):
+                results = t(results)
             if results is None:
                 return None
         return results

@@ -21,6 +21,7 @@ import torch
 from ..data import DataLoader, ShardedSampler
 from ..models.common import check_quant_calibrated, quant_calibration
 from ..parallel import all_gather_rows, world_rank
+from ..utils import tracing
 from .prefetch import prefetch_to_device
 from .train_step import make_eval_step, resolve_device
 
@@ -43,20 +44,32 @@ def evaluate_dataset(model: torch.nn.Module, dataset,
     (``data.device_norm_cfg``), None when the host normalizes. ``device``
     is CUDA unless the caller asks for the CPU. An ``int8_static`` model
     must be calibrated (``models.common.check_quant_calibrated``).
+
+    With tracing on, ``eval.pass`` spans the call, ``eval.setup`` its start
+    up to the first batch's request and ``eval.scores`` the scores'
+    gather and copy to the host.
     """
-    check_quant_calibrated(model)
-    device = resolve_device(device)
-    world, rank = world_rank()
-    sampler = ShardedSampler(len(dataset), world, rank, shuffle=False,
-                             pad=True)
-    loader = DataLoader(dataset, videos_per_gpu, sampler,
-                        num_workers=workers_per_gpu, drop_last=False)
-    step = _cached_eval_step(model, extract_feat, _freeze(norm_cfg),
-                             device)
-    # a cached step finds the model as the caller left it: a train loop
-    # evaluating between epochs leaves it in train mode
-    was_training = model.training
-    model.eval()
+    with tracing.span('eval.pass'):
+        return _evaluate(model, dataset, videos_per_gpu, workers_per_gpu,
+                         extract_feat, progress, norm_cfg, device)
+
+
+def _evaluate(model, dataset, videos_per_gpu, workers_per_gpu, extract_feat,
+              progress, norm_cfg, device) -> np.ndarray:
+    with tracing.span('eval.setup'):
+        check_quant_calibrated(model)
+        device = resolve_device(device)
+        world, rank = world_rank()
+        sampler = ShardedSampler(len(dataset), world, rank, shuffle=False,
+                                 pad=True)
+        loader = DataLoader(dataset, videos_per_gpu, sampler,
+                            num_workers=workers_per_gpu, drop_last=False)
+        step = _cached_eval_step(model, extract_feat, _freeze(norm_cfg),
+                                 device)
+        # a cached step finds the model as the caller left it: a train loop
+        # evaluating between epochs leaves it in train mode
+        was_training = model.training
+        model.eval()
 
     out: List[torch.Tensor] = []
     n_batches = len(loader)
@@ -82,6 +95,12 @@ def evaluate_dataset(model: torch.nn.Module, dataset,
         raise RuntimeError(
             f'rank {rank}: produced no scores for a non-empty dataset '
             f'({len(dataset)} videos, shard {len(sampler)})')
+    with tracing.span('eval.scores'):
+        return _gather_scores(out, sampler, world, len(dataset))
+
+
+def _gather_scores(out: List[torch.Tensor], sampler, world: int,
+                   n: int) -> np.ndarray:
     scores = torch.cat(out)
     if scores.dtype == torch.bfloat16:        # numpy has no bfloat16
         scores = scores.float()
@@ -92,8 +111,8 @@ def evaluate_dataset(model: torch.nn.Module, dataset,
                            f'rows for {len(sampler)} sampler indices')
     if world > 1:
         return reorder_rank_strided(all_gather_rows(scores).cpu().numpy(),
-                                    world, len(dataset))
-    return scores.cpu().numpy()[:len(dataset)]
+                                    world, n)
+    return scores.cpu().numpy()[:n]
 
 
 def calibrate_quant(model: torch.nn.Module, dataset, videos: int,

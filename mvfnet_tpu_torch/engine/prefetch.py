@@ -18,6 +18,8 @@ from typing import Iterable, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils import tracing
+
 
 class PinnedStager:
     """Two pinned host buffers and a copy stream for one CUDA device.
@@ -25,7 +27,8 @@ class PinnedStager:
     A batch smaller than the buffers (the last, partial batch) uses their
     leading rows; a batch of another frame shape or dtype reallocates both
     once their copies have ended. ``uploads`` counts the batches staged and
-    ``bytes_uploaded`` their bytes.
+    ``bytes_uploaded`` their bytes; with tracing on, ``upload.stage`` spans
+    each ``stage`` (``bytes``).
     """
 
     def __init__(self, device: torch.device):
@@ -56,15 +59,16 @@ class PinnedStager:
         """Copy ``arr`` into the free pinned buffer and queue its upload;
         returns the device tensor and the event that ends its copy."""
         arr = np.ascontiguousarray(arr)
-        slot = self._next
-        if self._events[slot] is not None:
-            self._events[slot].synchronize()   # its last copy has ended
-        host = self._buffer(arr)
-        host.numpy()[...] = arr
-        with torch.cuda.stream(self.stream):
-            dev = host.to(self.device, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(self.stream)
+        with tracing.span('upload.stage', bytes=arr.nbytes):
+            slot = self._next
+            if self._events[slot] is not None:
+                self._events[slot].synchronize()   # its last copy has ended
+            host = self._buffer(arr)
+            host.numpy()[...] = arr
+            with torch.cuda.stream(self.stream):
+                dev = host.to(self.device, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(self.stream)
         self._events[slot] = done
         self._next = 1 - slot
         self.uploads += 1

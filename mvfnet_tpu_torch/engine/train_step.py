@@ -14,6 +14,7 @@ same losses, gradients, parameters and BatchNorm statistics, less memory.
 
 from __future__ import annotations
 
+import itertools
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional, Union
 
@@ -21,6 +22,7 @@ import numpy as np
 import torch
 
 from ..ops.normalize import maybe_device_normalize
+from ..utils import tracing
 
 
 def resolve_device(device: Union[None, str, torch.device]) -> torch.device:
@@ -34,8 +36,13 @@ def resolve_device(device: Union[None, str, torch.device]) -> torch.device:
 
 
 def _to_device(x, device: torch.device) -> torch.Tensor:
+    """``x`` on ``device``; a host array copied from pageable memory to a
+    CUDA device is spanned ``upload.pageable`` (``bytes``)."""
     if isinstance(x, np.ndarray):
         x = torch.from_numpy(x)
+    if x.device.type == 'cpu' and device.type == 'cuda':
+        with tracing.span('upload.pageable', bytes=x.nbytes):
+            return x.to(device, non_blocking=True)
     return x.to(device, non_blocking=True)
 
 
@@ -51,18 +58,25 @@ def make_eval_step(model: torch.nn.Module,
     ``Normalize`` to the device, ``norm_cfg['device']``).
     The frames move to ``device`` (CUDA by default), are normalized there,
     and go through the model in ``eval()`` under ``torch.inference_mode()``.
+    With tracing on, ``step.eval`` spans a call (``req``: the step's call
+    number), with the upload, ``step.normalize`` and ``step.forward``
+    inside.
     """
     device = resolve_device(device)
     model.to(device).eval()
+    calls = itertools.count()
 
     def eval_step(model, imgs):
-        imgs = _to_device(imgs, device)
-        with torch.inference_mode():
-            imgs = maybe_device_normalize(imgs, norm_cfg,
-                                          model.compute_dtype)
-            if extract_feat:
-                return model.forward_extract_feat(imgs)
-            return model(imgs, None, return_loss=False)
+        with tracing.span('step.eval', req=next(calls)):
+            imgs = _to_device(imgs, device)
+            with torch.inference_mode():
+                with tracing.span('step.normalize'):
+                    imgs = maybe_device_normalize(imgs, norm_cfg,
+                                                  model.compute_dtype)
+                with tracing.span('step.forward'):
+                    if extract_feat:
+                        return model.forward_extract_feat(imgs)
+                    return model(imgs, None, return_loss=False)
 
     return eval_step
 
@@ -151,6 +165,12 @@ def make_train_step(model: torch.nn.Module,
     ``with_cp``: each res-stage's activations (each stage of both
     SlowFast pathways) are recomputed in the backward instead of kept,
     with BatchNorm's running statistics moved once.
+
+    With tracing on, ``train.step`` spans a call (``req``: the step's
+    number), with the inputs' ``upload.pageable``, then ``train.forward``
+    (the device normalize, the forward and the loss), ``train.backward``,
+    ``train.clip``, ``train.optimizer`` and, at world > 1,
+    ``train.reduce`` inside.
     """
     from ..models.common import set_sync_group
     from ..parallel import all_reduce_mean, world_rank
@@ -171,39 +191,52 @@ def make_train_step(model: torch.nn.Module,
     mask_rank = rank if world > 1 and local_bn else None
 
     def train_step(imgs, labels, generator=None) -> Dict[str, Any]:
+        with tracing.span('train.step', req=state.step):
+            return _train_step(imgs, labels, generator)
+
+    def _train_step(imgs, labels, generator):
         if generator is None and step_generator is not None:
             generator = step_generator.manual_seed(
                 dropout_seed(seed, state.step, mask_rank))
-        imgs = maybe_device_normalize(_to_device(imgs, device), norm_cfg,
-                                      model.compute_dtype)
+        imgs = _to_device(imgs, device)
         labels = _to_device(labels, device)
-        forward.train()
-        model.zero_grad(set_to_none=True)
-        losses = forward(imgs, labels, return_loss=True, generator=generator)
-        total = sum(v for k, v in losses.items() if 'loss' in k)
-        total.backward()
-        grad_norm = optimizer.clip_grads()
-        lr = lr_schedule(state.step)
-        optimizer.set_lr(lr)
-        optimizer.step()
+        with tracing.span('train.forward'):
+            imgs = maybe_device_normalize(imgs, norm_cfg, model.compute_dtype)
+            forward.train()
+            model.zero_grad(set_to_none=True)
+            losses = forward(imgs, labels, return_loss=True,
+                             generator=generator)
+            total = sum(v for k, v in losses.items() if 'loss' in k)
+        with tracing.span('train.backward'):
+            total.backward()
+        with tracing.span('train.clip'):
+            grad_norm = optimizer.clip_grads()
+        with tracing.span('train.optimizer'):
+            lr = lr_schedule(state.step)
+            optimizer.set_lr(lr)
+            optimizer.step()
         state.step += 1
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics['loss'] = total.detach()
         if world > 1:
-            # one all_reduce for the losses, one for the BN statistics
-            keys = list(metrics)
-            mean = all_reduce_mean(torch.stack([metrics[k] for k in keys]))
-            metrics = dict(zip(keys, mean.unbind()))
-            if local_bn:
-                with torch.no_grad():
-                    bufs = _bn_buffers(model)
-                    flat = all_reduce_mean(torch.cat(
-                        [b.reshape(-1) for b in bufs]))
-                    for b, v in zip(bufs, flat.split(
-                            [b.numel() for b in bufs])):
-                        b.copy_(v.view_as(b))
+            with tracing.span('train.reduce'):
+                metrics = _reduce(metrics)
         metrics.update(grad_norm=grad_norm, lr=lr)
         return metrics
+
+    def _reduce(metrics):
+        # one all_reduce for the losses, one for the BN statistics
+        keys = list(metrics)
+        mean = all_reduce_mean(torch.stack([metrics[k] for k in keys]))
+        if local_bn:
+            with torch.no_grad():
+                bufs = _bn_buffers(model)
+                flat = all_reduce_mean(torch.cat(
+                    [b.reshape(-1) for b in bufs]))
+                for b, v in zip(bufs, flat.split(
+                        [b.numel() for b in bufs])):
+                    b.copy_(v.view_as(b))
+        return dict(zip(keys, mean.unbind()))
 
     train_step.state = state
     return train_step

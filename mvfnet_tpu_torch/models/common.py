@@ -23,10 +23,10 @@ from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from ..ops import int8_conv as q8
 from ..ops.mvf import hard_sigmoid
+from ..utils import tracing
 
 # torch BatchNorm defaults; flax's momentum 0.9 weighs the OLD statistics,
 # torch's 0.1 the new ones: the same update
@@ -317,14 +317,14 @@ class _QuantStats:
 
     def _quant_input(self, x: torch.Tensor, stat: str):
         """``(sx, int8 x)`` with channels last, x NC... of any rank."""
-        with record_function('int8_quantize'):
+        with tracing.span('int8_quantize'):
             xf = x.float()
             sx = self._act_scale(xf, stat)
             xq = q8.quantize_activation(xf, sx)
         return sx, xq.permute((0,) + tuple(range(2, x.ndim)) + (1,))
 
     def _quant_weight(self, w: torch.Tensor):
-        with record_function('int8_weights'):
+        with tracing.span('int8_weights'):
             return q8.quantize_weight(w)
 
 
@@ -332,7 +332,7 @@ def _packed(wq: torch.Tensor) -> torch.Tensor:
     """An int8 ``(O, I, [kt,] kh, kw)`` weight in the int8 kernel's layout
     ``(Cout, kt, kh, kw, Cin)``, contiguous: the one copy of the quantized
     weight a call makes."""
-    with record_function('int8_weights'):
+    with tracing.span('int8_weights'):
         wp = wq.permute(0, *range(2, wq.ndim), 1)
         return (wp[:, None] if wq.ndim == 4 else wp).contiguous()
 
@@ -391,7 +391,7 @@ class QuantConv2d(Conv2d, _QuantStats):
             if not self.static or prev_affine is None:
                 raise ValueError('IntCarry input needs static=True and the '
                                  'previous BN affine')
-            with record_function('int8_requantize'):
+            with tracing.span('int8_requantize'):
                 sx = q8.activation_scale(self.act_amax.float())
                 xq = q8.requantize_carry(x.acc, x.scale, *prev_affine, sx)
             dtype = x.dtype
@@ -427,7 +427,7 @@ class QuantConv2d(Conv2d, _QuantStats):
             if out is None:
                 out = y
             else:
-                with record_function('int8_split_sum'):
+                with tracing.span('int8_split_sum'):
                     out = (out + y).to(x.dtype)
         return to_nchw(out[:, 0])
 

@@ -20,6 +20,7 @@ import torch
 import torch.nn as nn
 
 from ...ops.mvf import hard_swish, mvf_conv_sum
+from ...utils import tracing
 from ..common import BN_EPS, make_norm, to_nchw, to_nhwc
 
 _TAP_SHAPES = {'shift_conv': (3, 1, 1), 'h_conv': (1, 3, 1),
@@ -113,5 +114,8 @@ class MVF(nn.Module):
         return out.reshape(nt, h, w, c)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = to_nchw(self.mvf(to_nhwc(x)))
-        return self.net(y.contiguous(memory_format=torch.channels_last))
+        # the fusion and its layout copies; the wrapped conv runs outside
+        with tracing.span('model.mvf'):
+            y = to_nchw(self.mvf(to_nhwc(x))).contiguous(
+                memory_format=torch.channels_last)
+        return self.net(y)

@@ -3,6 +3,7 @@
     python -m mvfnet_tpu_torch.tools.test_recognizer CONFIG CHECKPOINT \\
         [--out scores.pkl] [--fcn_testing] [--average-clips prob|score] \\
         [--videos_per_gpu N] [--launcher none|env|slurm] [--device cuda|cpu]
+        [--trace spans.json]
 
 Builds the model and the config's test dataset, loads a ``.pth`` checkpoint
 through the non-strict importer (``utils.checkpoint.import_torch_state_dict``,
@@ -24,6 +25,11 @@ CLI does: the activation abs-max starts from what the checkpoint holds (a
 ``.msgpack`` with a ``quant_stats`` collection) or from zeros, the JAX
 init pass on zeros, and grows over those videos. ``quant='int8'``
 quantizes each call with its own scales and needs no calibration.
+
+``--trace PATH`` turns the port's spans on for the run (``utils.tracing``:
+the loader's waits, each pipeline op, the decode calls, the uploads, the
+eval steps) and writes them to PATH as Chrome trace-event JSON, which
+Perfetto loads; rank r > 0 writes ``<stem>.rank<r>.json``.
 """
 
 from __future__ import annotations
@@ -54,6 +60,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     parser.add_argument('--device', default='cuda',
                         help="'cuda' (the default; raises without CUDA) or "
                              "'cpu'")
+    parser.add_argument('--trace', default=None, metavar='PATH',
+                        help="write the port's spans of the run to PATH "
+                             '(Chrome trace-event JSON, for Perfetto)')
     return parser.parse_args(argv)
 
 
@@ -97,8 +106,10 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     int8 convs' calibration buffers (empty without quant), on every
     rank."""
     args = parse_args(argv)
-    from ..parallel import process_group
-    with process_group(args.launcher, args.device) as device:
+    from ..parallel import get_dist_info, process_group
+    from ..utils import tracing
+    with process_group(args.launcher, args.device) as device, \
+            tracing.recording(args.trace, get_dist_info()['rank']):
         return _test(args, device)
 
 

@@ -3,7 +3,8 @@
     python -m mvfnet_tpu_torch.tools.train_recognizer CONFIG \\
         [--work_dir DIR] [--resume_from CKPT] [--validate] \\
         [--seed N] [--bf16] [--autoscale-lr] [--profile N] \\
-        [--launcher none|env|slurm] [--gpus N] [--device cuda|cpu]
+        [--launcher none|env|slurm] [--gpus N] [--device cuda|cpu] \
+        [--trace spans.json]
 
 Builds the config's recognizer in its ``compute_dtype`` (bf16 with
 ``--bf16``; parameters stay float32) and its train dataset, and runs
@@ -19,6 +20,12 @@ local ranks on ``cuda:0..N-1``; each rank takes ``videos_per_gpu`` videos
 a step and rank 0 writes the files. ``--autoscale-lr`` scales the LR by
 world / 8. It runs on CUDA (NCCL between ranks) unless ``--device cpu``
 is given (gloo), and raises without CUDA.
+
+``--trace PATH`` turns the port's spans on for the run (``utils.tracing``:
+each train step's upload, forward, backward, clip and optimizer, the
+loader's waits, each pipeline op, the decode calls) and writes them to
+PATH as Chrome trace-event JSON, which Perfetto loads; rank r > 0 writes
+``<stem>.rank<r>.json``.
 """
 
 from __future__ import annotations
@@ -58,6 +65,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     parser.add_argument('--device', default='cuda',
                         help="'cuda' (the default; raises without CUDA) or "
                              "'cpu'")
+    parser.add_argument('--trace', default=None, metavar='PATH',
+                        help="write the port's spans of the run to PATH "
+                             '(Chrome trace-event JSON, for Perfetto)')
     return parser.parse_args(argv)
 
 
@@ -113,8 +123,10 @@ def main(argv: Optional[Sequence[str]] = None):
         spawn_local(_spawned_rank, args.gpus, (list(argv or sys.argv[1:]),),
                     timeout=_SPAWN_TIMEOUT)
         return None
-    from ..parallel import process_group
-    with process_group(args.launcher, args.device) as device:
+    from ..parallel import get_dist_info, process_group
+    from ..utils import tracing
+    with process_group(args.launcher, args.device) as device, \
+            tracing.recording(args.trace, get_dist_info()['rank']):
         return _train(args, device)
 
 

@@ -11,6 +11,7 @@ statistics, carried into the JAX layout with
 its in-process result.
 """
 
+import json
 import os
 import pickle
 import re
@@ -203,13 +204,22 @@ def test_cli_matches_in_process_evaluation(setup, tmp_path, fcn_testing):
     config = write_config(root, tmp_path / 'cfg.py')
     out = tmp_path / 'scores.pkl'
     flags = ['--fcn_testing'] if fcn_testing else []
+    trace = tmp_path / 'spans.json'
     proc = run_cli(config, root / 'model.pth', '--device', 'cpu', '--out',
-                   out, '--videos_per_gpu', 2, *flags)
+                   out, '--videos_per_gpu', 2, '--trace', trace, *flags)
     assert proc.returncode == 0, proc.stderr
     with open(out, 'rb') as f:
         rows = pickle.load(f)
     assert isinstance(rows, list) and len(rows) == len(VIDEOS)
     assert all(r.shape == (NUM_CLASSES,) for r in rows)
+    # --trace wrote the pass's spans: a wait and an item a video, a step a
+    # batch of two
+    with open(trace) as f:
+        names = [e['name'] for e in json.load(f)['traceEvents']
+                 if e['ph'] == 'X']
+    assert [names.count(n) for n in ('eval.pass', 'loader.wait',
+                                     'data.getitem', 'step.eval')] == [
+        1, len(VIDEOS), len(VIDEOS), 2]
 
     cfg = Config.fromfile(config)
     model = cli.build_model(cfg, fcn_testing, 'prob')

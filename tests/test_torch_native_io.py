@@ -33,6 +33,7 @@ from mvfnet_tpu_torch.data.loading import FrameSelector
 from mvfnet_tpu_torch.ops import _cuda
 from mvfnet_tpu_torch.tools.jpeg_kinds import KINDS, cv2_decode, diff, \
     write_kinds
+from mvfnet_tpu_torch.utils import tracing
 
 NATIVE_DIR = os.path.join(os.path.dirname(__file__), '..', 'native')
 NATIVE_LIB = os.path.join(NATIVE_DIR, 'build', 'libmvf_native.so')
@@ -384,11 +385,18 @@ def test_decode_call_launches_once(cuda, kinds):
                     (lambda: cuda.load(paths[0]), 1)):
         launches = native_io.ycc_to_bgr.launches
         converted = native_io.ycc_to_bgr.frames
-        calls = native_io.NativeImageLoader.decode_calls
-        assert load() is not None
+        tracing.clear()
+        tracing.enable()
+        try:
+            assert load() is not None
+        finally:
+            tracing.disable()
         assert native_io.ycc_to_bgr.launches == launches + 1
         assert native_io.ycc_to_bgr.frames == converted + n
-        assert native_io.NativeImageLoader.decode_calls == calls + 1
+        # one decode call, spanned with its frames
+        assert [s['attrs']['frames'] for s in tracing.collect()
+                if s['name'] == 'decode.nvjpeg'] == [n]
+        tracing.clear()
 
 
 @pytest.mark.cuda

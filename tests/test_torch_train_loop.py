@@ -31,6 +31,7 @@ and torchvision checkpoints.
   TensorBoard hook with and without ``torch.utils.tensorboard``.
 """
 
+import json
 import os
 import re
 import subprocess
@@ -508,11 +509,19 @@ def test_train_cli_trains_checkpoints_and_resumes(tiny_data, tmp_path):
     config = write_config(tmp_path, tiny_data)
     work = tmp_path / 'cli'
     proc = run_train_cli(config, '--work_dir', work, '--device', 'cpu',
-                         '--validate', '--profile', 1)
+                         '--validate', '--profile', 1,
+                         '--trace', work / 'spans.json')
     assert proc.returncode == 0, proc.stderr
     for name in ('epoch_1.pth', 'epoch_2.pth', 'latest.pth', 'train.log',
                  'profile/trace.json'):
         assert (work / name).exists(), name
+    # --trace wrote the run's spans: 4 steps and their phases, 2 evaluations
+    names = [e['name'] for e in json.loads(
+        (work / 'spans.json').read_text())['traceEvents'] if e['ph'] == 'X']
+    assert [names.count(n) for n in ('train.step', 'train.forward',
+                                     'train.backward', 'train.clip',
+                                     'train.optimizer', 'eval.pass')] == [
+        4, 4, 4, 4, 4, 2]
     log = (work / 'train.log').read_text()
     assert [m.groups() for m in LOG_LINE.finditer(log)] == [
         ('1', '1', '2'), ('1', '2', '2'), ('2', '1', '2'), ('2', '2', '2')]
