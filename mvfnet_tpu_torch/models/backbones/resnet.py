@@ -19,8 +19,16 @@ BatchNorm and without a downsample or temporal module (MVF, CoST) folds
 its three BatchNorms into the conv weights and runs as one fused call,
 ``ops.fused_block.bottleneck_eval``: the hand-written CUDA kernel on the
 card, its plain version on the CPU; a block a non-local block follows
-fuses too. BasicBlocks, GroupNorm blocks, avd blocks and quantized blocks (``quant``,
-the int8 eval path) take the plain path, as in the JAX package.
+fuses too. Under the same condition every other (plain conv, BatchNorm)
+pair runs as one conv with the BN folded into its weight and bias
+(``common.fold_conv_bn``, ``common.folded_conv``), its ReLU and residual
+add after it, in cuDNN's epilogue for bf16 on the card: the stem (the
+deep stem's three pairs), each downsample, the three pairs of every other
+Bottleneck (an MVF block's conv1 after the fusion; a CoST block's conv1
+and conv3) and BasicBlock's two. The fp32 BatchNorm keeps running for
+GroupNorm blocks, the int8 path's quantized convs, a CoST block's
+``bn2`` (it follows CoST, not a conv), and in training. The folded
+weights are cached per module (``_FoldsNorms``).
 
 ``with_cp`` (activation checkpointing) runs each res-stage through
 ``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)`` while the
@@ -37,7 +45,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
-from typing import Dict, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 import torch.nn as nn
@@ -46,17 +54,77 @@ from torch.utils.checkpoint import checkpoint
 from ...ops import fused_block as fb
 from ..builder import BACKBONES
 from ..common import (BatchNorm, QuantConv2d, avg_pool_torch,
-                      bn_affine, check_quant_stages, conv2d,
-                      frozen_norm_statistics, lecun_normal_, make_norm,
-                      max_pool_same_as_torch, refuse_quant_training, to_nchw,
-                      to_nhwc)
+                      bn_affine, check_quant_stages, conv2d, fold_conv_bn,
+                      foldable, folded_conv, frozen_norm_statistics,
+                      lecun_normal_, make_norm, max_pool_same_as_torch,
+                      refuse_quant_training, to_nchw, to_nhwc)
 from ..modules.cost import CoST
 from ..modules.mvf import MVF
 from ..modules.nonlocal_attention import (LocalAttention, NonLocal2D,
                                           nonlocal_block_indices)
 
 
-class Downsample(nn.Sequential):
+class _FoldsNorms(nn.Module):
+    """A module whose eval forward folds BatchNorm into the conv before it.
+
+    The folded weights are made once after ``eval()``, a move or a load,
+    and again only when one of their source tensors is changed in place
+    (its version counter moves) or the dtype changes; ``train()`` and
+    ``_apply`` drop them."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._folded = {}
+
+    def train(self, mode: bool = True):
+        # BN statistics updated in training bump no version counter
+        self._folded.clear()
+        return super().train(mode)
+
+    def _apply(self, fn, *args, **kwargs):
+        self._folded.clear()
+        return super()._apply(fn, *args, **kwargs)
+
+    @property
+    def folding(self) -> bool:
+        """Eval with no gradient recorded: the BatchNorms fold."""
+        return not self.training and not torch.is_grad_enabled()
+
+    def _cached(self, name: str, dtype: torch.dtype, tensors, make):
+        """``make()``, kept under ``name`` while ``dtype`` and the storage
+        and version of each of ``tensors`` stay as they were."""
+        key = (dtype,) + tuple((t.data_ptr(), t._version) for t in tensors)
+        hit = self._folded.get(name)
+        if hit is None or hit[0] != key:
+            hit = self._folded[name] = (key, make())
+        return hit[1]
+
+    def _conv_norm(self, name: str, conv: nn.Module, norm: nn.Module,
+                   x: torch.Tensor, relu: bool = False,
+                   shortcut: Optional[Callable[[], torch.Tensor]] = None
+                   ) -> torch.Tensor:
+        """``norm(conv(x))``, ``+ shortcut()``, then the ReLU if ``relu``.
+        While folding, a plain conv (an MVF-wrapped one's after the
+        fusion) and a BatchNorm run as one folded conv, its weights cached
+        under ``name``, the shortcut computed first; otherwise after the
+        norm, as the JAX package orders them."""
+        net = conv.net if isinstance(conv, MVF) else conv
+        if self.folding and foldable(net, norm):
+            if net is not conv:
+                x = conv.fuse(x)
+            w, b = self._cached(
+                name, x.dtype, (net.weight, norm.weight, norm.bias,
+                                norm.running_mean, norm.running_var),
+                lambda: fold_conv_bn(net, norm, x.dtype))
+            return folded_conv(x, net, w, b, relu,
+                               None if shortcut is None else shortcut())
+        out = norm(conv(x))
+        if shortcut is not None:
+            out = out + shortcut()
+        return torch.relu(out) if relu else out
+
+
+class Downsample(_FoldsNorms, nn.Sequential):
     """The shortcut projection ``(conv 1x1, norm)``. With ``avg_down`` an
     ``AvgPool2d(s, s, ceil_mode=True, count_include_pad=False)`` runs
     first and the conv has stride 1; at a dilated stage the pool is
@@ -75,7 +143,11 @@ class Downsample(nn.Sequential):
         if self.pool_stride > 1:
             x = avg_pool_torch(x, self.pool_stride, self.pool_stride,
                                ceil_mode=True, count_include_pad=False)
-        return super().forward(x)
+        return self._conv_norm('1', self[0], self[1], x)
+
+
+def _shortcut(block: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    return x if block.downsample is None else block.downsample(x)
 
 
 def _is_cost(temporal_cfg: Optional[Dict]) -> bool:
@@ -106,7 +178,7 @@ def _wrap_temporal(conv: nn.Module, temporal_cfg: Optional[Dict],
     return MVF(conv, in_channels=inplanes, **cfg)
 
 
-class BasicBlock(nn.Module):
+class BasicBlock(_FoldsNorms):
     """ResNet BasicBlock: 3x3 (stride, dilation) -> norm -> relu -> 3x3 ->
     norm, + shortcut, relu. ``temporal_cfg`` wraps conv1, a 3x3 conv that
     may have stride 2."""
@@ -136,13 +208,12 @@ class BasicBlock(nn.Module):
                            if with_downsample else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = torch.relu(self.bn1(self.conv1(x)))
-        out = self.bn2(self.conv2(out))
-        identity = x if self.downsample is None else self.downsample(x)
-        return torch.relu(out + identity)
+        out = self._conv_norm('bn1', self.conv1, self.bn1, x, relu=True)
+        return self._conv_norm('bn2', self.conv2, self.bn2, out, relu=True,
+                               shortcut=lambda: _shortcut(self, x))
 
 
-class Bottleneck(nn.Module):
+class Bottleneck(_FoldsNorms):
     """ResNet Bottleneck; ``temporal_cfg`` wraps conv1 in MVF, the
     reference's ``blocks[i].conv1 = MVF(b.conv1, ...)``, or replaces conv2
     with CoST.
@@ -195,7 +266,6 @@ class Bottleneck(nn.Module):
         self.bn2 = make_norm(norm_cfg, planes)
         self.conv3 = conv2d(planes, planes * self.expansion, 1, quant=quant)
         self.bn3 = make_norm(norm_cfg, planes * self.expansion)
-        self._fused = None      # (key, folded weights), see _fused_weights
         self.downsample = (Downsample(inplanes, planes * self.expansion,
                                       stride, dilation, avg_down, norm_cfg,
                                       quant)
@@ -228,22 +298,18 @@ class Bottleneck(nn.Module):
                         for bn in (self.bn1, self.bn2)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if (self.fusable and not self.training
-                and not torch.is_grad_enabled()):
+        if self.fusable and self.folding:
             return self._forward_fused(x)
         if self.uses_carry:
             return self._forward_carry(x)
-        identity = x
-        out = torch.relu(self.bn1(self.conv1(x)))
+        out = self._conv_norm('bn1', self.conv1, self.bn1, x, relu=True)
         if self.avd and self.avd_first:
             out = self._avd(out)
-        out = torch.relu(self.bn2(self.conv2(out)))
+        out = self._conv_norm('bn2', self.conv2, self.bn2, out, relu=True)
         if self.avd and not self.avd_first:
             out = self._avd(out)
-        out = self.bn3(self.conv3(out))
-        if self.downsample is not None:
-            identity = self.downsample(x)
-        return torch.relu(out + identity)
+        return self._conv_norm('bn3', self.conv3, self.bn3, out, relu=True,
+                               shortcut=lambda: _shortcut(self, x))
 
     def _forward_carry(self, x: torch.Tensor) -> torch.Tensor:
         """conv1 -> conv2 -> conv3 exchanging int8: each BN affine and ReLU
@@ -252,42 +318,31 @@ class Bottleneck(nn.Module):
         out = self.conv2(out, prev_affine=bn_affine(self.bn1),
                          carry_out=True)
         out = self.bn3(self.conv3(out, prev_affine=bn_affine(self.bn2)))
-        identity = x if self.downsample is None else self.downsample(x)
-        return torch.relu(out + identity)
-
-    def train(self, mode: bool = True):
-        # BN statistics updated in training bump no version counter
-        self._fused = None
-        return super().train(mode)
-
-    def _apply(self, fn, *args, **kwargs):
-        self._fused = None
-        return super()._apply(fn, *args, **kwargs)
+        return torch.relu(out + _shortcut(self, x))
 
     def _fused_weights(self, dtype: torch.dtype):
         """The three BNs folded into the weights (in fp32, then cast), stored
-        output-channel-major for the kernel. Made once after ``eval()``, a
-        move or a load, and again only when a parameter or BN statistic is
-        changed in place (its version counter moves)."""
+        output-channel-major for the kernel, cached as ``_FoldsNorms``
+        caches."""
         pairs = ((self.conv1, self.bn1), (self.conv2, self.bn2),
                  (self.conv3, self.bn3))
         tensors = [t for conv, bn in pairs for t in (
             conv.weight, bn.weight, bn.bias, bn.running_mean, bn.running_var)]
-        key = (dtype,) + tuple((t.data_ptr(), t._version) for t in tensors)
-        if self._fused is not None and self._fused[0] == key:
-            return self._fused[1]
-        # kernels with the output channel last, as fold_bn expects
-        kernels = (self.conv1.weight[:, :, 0, 0].t(),        # (Cin, Cm)
-                   self.conv2.weight.permute(2, 3, 1, 0),    # HWIO
-                   self.conv3.weight[:, :, 0, 0].t())        # (Cm, Cin)
-        folded = []
-        with torch.no_grad():
-            for k, (_, bn) in zip(kernels, pairs):
-                w, b = fb.fold_bn(k, bn.weight, bn.bias, bn.running_mean,
-                                  bn.running_var, bn.eps)
-                folded += [fb.out_major(w.to(dtype)), b.reshape(1, -1)]
-        self._fused = (key, folded)
-        return folded
+
+        def fold():
+            # kernels with the output channel last, as fold_bn expects
+            kernels = (self.conv1.weight[:, :, 0, 0].t(),        # (Cin, Cm)
+                       self.conv2.weight.permute(2, 3, 1, 0),    # HWIO
+                       self.conv3.weight[:, :, 0, 0].t())        # (Cm, Cin)
+            folded = []
+            with torch.no_grad():
+                for k, (_, bn) in zip(kernels, pairs):
+                    w, b = fb.fold_bn(k, bn.weight, bn.bias, bn.running_mean,
+                                      bn.running_var, bn.eps)
+                    folded += [fb.out_major(w.to(dtype)), b.reshape(1, -1)]
+            return folded
+
+        return self._cached('fused', dtype, tensors, fold)
 
     def _forward_fused(self, x: torch.Tensor) -> torch.Tensor:
         folded = self._fused_weights(x.dtype)
@@ -296,7 +351,7 @@ class Bottleneck(nn.Module):
 
 
 @BACKBONES.register_module
-class ResNet(nn.Module):
+class ResNet(_FoldsNorms):
     """ResNet-18/34 (BasicBlock) and 50/101/152 (Bottleneck), torch
     state-dict names.
 
@@ -449,12 +504,15 @@ class ResNet(nn.Module):
 
     def _stem(self, x: torch.Tensor) -> torch.Tensor:
         if self.deep_stem:
-            x = torch.relu(self.stem_bn1(self.stem_conv1(x)))
-            x = torch.relu(self.stem_bn2(self.stem_conv2(x)))
-            x = self.stem_conv3(x)
+            x = self._conv_norm('stem_bn1', self.stem_conv1, self.stem_bn1,
+                                x, relu=True)
+            x = self._conv_norm('stem_bn2', self.stem_conv2, self.stem_bn2,
+                                x, relu=True)
+            conv = self.stem_conv3
         else:
-            x = self.conv1(x)
-        return self.maxpool(torch.relu(self.bn1(x)))
+            conv = self.conv1
+        return self.maxpool(self._conv_norm('bn1', conv, self.bn1, x,
+                                            relu=True))
 
     def forward(self, x: torch.Tensor):
         """x: (N, C, H, W), any memory format; returns channels_last maps."""

@@ -17,6 +17,7 @@ records their activation scales.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 
@@ -24,6 +25,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops import fused_block as fb
 from ..ops import int8_conv as q8
 from ..ops.mvf import hard_sigmoid
 from ..utils import tracing
@@ -97,6 +99,13 @@ class BatchNorm(nn.BatchNorm2d):
     normalized with the biased variance and the running variance stores the
     unbiased one (torch semantics). The output is cast back to the input's
     dtype: bf16 in, bf16 out, with one rounding.
+
+    This forward runs in train mode, under gradients, and in eval where no
+    plain conv precedes the norm: the 3-D backbones, MVF's and CoST's own
+    BNs, a CoST block's ``bn2``, the int8 path's quantized convs. In eval
+    with no gradient the 2-D ResNet folds every other BatchNorm into the
+    conv before it (``fold_conv_bn``, ``folded_conv``) or into the fused
+    bottleneck, and this forward does not run there.
 
     With a process group in ``sync_group`` (``set_sync_group``), train mode
     normalizes with the statistics of the whole batch across the group's
@@ -198,6 +207,55 @@ class Conv2d(nn.Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(x.dtype)
         return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
+def foldable(conv: nn.Module, norm: nn.Module) -> bool:
+    """Whether eval folds ``norm`` into ``conv``: a plain bias-free
+    :class:`Conv2d` (not the int8 path's, which folds its own way) and a
+    :class:`BatchNorm`, whose running statistics make it an affine."""
+    return (isinstance(conv, Conv2d) and not isinstance(conv, QuantConv2d)
+            and conv.bias is None and isinstance(norm, BatchNorm))
+
+
+def fold_conv_bn(conv: Conv2d, bn: BatchNorm, dtype: torch.dtype):
+    """``bn(conv(x)) == conv'(x) + b'``: the eval BatchNorm folded into the
+    conv's weight in the parameters' dtype (``fused_block.fold_bn``, the
+    fused kernel's fold), then ``(W', b')`` cast to ``dtype``, the weight
+    ``channels_last`` as the activations are. Counted in
+    ``folded_conv.counts['folds']``."""
+    with torch.no_grad():
+        w, b = fb.fold_bn(conv.weight.permute(1, 2, 3, 0), bn.weight,
+                          bn.bias, bn.running_mean, bn.running_var, bn.eps)
+        w = w.permute(3, 0, 1, 2).to(dtype).contiguous(
+            memory_format=torch.channels_last)
+    folded_conv.counts['folds'] += 1
+    return w, b.to(dtype)
+
+
+def folded_conv(x: torch.Tensor, conv: Conv2d, weight: torch.Tensor,
+                bias: torch.Tensor, relu: bool = False,
+                residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``conv``'s geometry with a folded weight and bias, ``+ residual``,
+    then the ReLU if ``relu``. bf16 with a ReLU on the card takes cuDNN's
+    fused epilogue, one call (``cudnn_convolution_relu``, or
+    ``cudnn_convolution_add_relu`` with the residual as ``z``); anything
+    else, the CPU's f64 included, runs ``F.conv2d`` with the bias and
+    in-place add and ReLU. Counts each call in
+    ``folded_conv.counts['calls']``."""
+    folded_conv.counts['calls'] += 1
+    geometry = (conv.stride, conv.padding, conv.dilation, conv.groups)
+    if relu and x.device.type == 'cuda' and x.dtype == torch.bfloat16:
+        if residual is None:
+            return torch.cudnn_convolution_relu(x, weight, bias, *geometry)
+        return torch.cudnn_convolution_add_relu(x, weight, residual, 1.0,
+                                                bias, *geometry)
+    out = F.conv2d(x, weight, bias, *geometry)
+    if residual is not None:
+        out.add_(residual)
+    return out.relu_() if relu else out
+
+
+folded_conv.counts = collections.Counter()
 
 
 QUANT_MODES = ('int8', 'int8_static')

@@ -113,9 +113,14 @@ class MVF(nn.Module):
         out = torch.cat([y.to(x.dtype), xu], dim=-1)
         return out.reshape(nt, h, w, c)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def fuse(self, x: torch.Tensor) -> torch.Tensor:
+        """The fusion on the block's NCHW (channels_last) tensor: the
+        wrapped conv's input. The 2-D ResNet calls it alone where it folds
+        the block's BatchNorm into ``net``."""
         # the fusion and its layout copies; the wrapped conv runs outside
         with tracing.span('model.mvf'):
-            y = to_nchw(self.mvf(to_nhwc(x))).contiguous(
+            return to_nchw(self.mvf(to_nhwc(x))).contiguous(
                 memory_format=torch.channels_last)
-        return self.net(y)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.net(self.fuse(x))

@@ -4,7 +4,9 @@ path's kinds of shape), a small quantized R50+MVF in bf16 that must launch
 the int8 kernel and no fused one, a small train step that must not launch them, a bf16 train loop epoch whose
 mid-train evaluation must, a feature-extraction pass that must, the eval
 loop's pinned-memory prefetch, the synced BatchNorm on 2-D and 3-D maps,
-and a small I3D in bf16 that must match the CPU and launch no kernel.
+a small I3D in bf16 that must match the CPU and launch no kernel, and the
+eval BatchNorm fold: cuDNN's bf16 conv epilogue against the plain float32
+form, and the bf16 flagship folded against its unfolded path.
 
 Every test here carries the ``cuda`` marker and skips without a GPU. This
 file imports neither JAX nor the JAX package, so it also runs on a machine
@@ -20,10 +22,12 @@ import collections
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from mvfnet_tpu_torch.engine.optim import build_lr_schedule, build_optimizer
 from mvfnet_tpu_torch.engine.train_step import make_eval_step, make_train_step
-from mvfnet_tpu_torch.models import build_recognizer
+from mvfnet_tpu_torch.models import build_recognizer, common
+from mvfnet_tpu_torch.models.backbones import resnet
 from mvfnet_tpu_torch.ops import fused_block as fb
 from mvfnet_tpu_torch.ops import int8_conv as q8
 
@@ -594,3 +598,87 @@ def test_quantized_r50_on_the_card_launches_int8_and_matches_plain(
     # split in two (layer2's 4 blocks): 21 + 2 + 4
     assert launched == 27
     assert torch.equal(got, want)
+
+
+# the flagship's folded pairs, one of each kind: (N, Cin, H, W), (Cout,
+# kernel, stride, padding), ReLU, a shortcut added before it
+FOLDED_CONVS = [((8, 3, 64, 64), (64, 7, 2, 3), True, False),      # stem
+                ((8, 256, 32, 32), (64, 1, 1, 0), True, False),    # conv1
+                ((8, 128, 32, 32), (128, 3, 2, 1), True, False),   # conv2
+                ((8, 64, 16, 16), (256, 1, 1, 0), True, True),     # conv3
+                ((8, 256, 32, 32), (512, 1, 2, 0), False, False)]  # shortcut
+
+
+@pytest.mark.parametrize('case', FOLDED_CONVS,
+                         ids=['stem', 'conv1', 'conv2', 'conv3', 'shortcut'])
+def test_folded_conv_matches_plain_float32(cuda, case):
+    """``common.folded_conv`` in bf16 channels_last, cuDNN's epilogue
+    where it has a ReLU, against the same bf16 operands in float32: one
+    bf16 rounding of the output. Its output buffer comes from a freed
+    block of NaNs, which the epilogue must not read."""
+    (n, cin, h, w), (cout, k, stride, pad), relu, add = case
+    conv = common.conv2d(cin, cout, k, stride=stride, padding=pad)
+    gen = torch.Generator().manual_seed(0)
+    cl = torch.channels_last
+
+    def draw(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).cuda().to(
+            torch.bfloat16)
+
+    x = draw(n, cin, h, w).contiguous(memory_format=cl)
+    weight = draw(cout, cin, k, k, scale=(cin * k * k) ** -0.5).contiguous(
+        memory_format=cl)
+    bias = draw(cout)
+    ho = (h + 2 * pad - k) // stride + 1
+    z = draw(n, cout, ho, ho).contiguous(memory_format=cl) if add else None
+    want = F.conv2d(x.float(), weight.float(), bias.float(), stride, pad)
+    if add:
+        want = want + z.float()
+    if relu:
+        want = torch.relu(want)
+    poison = torch.full((n * cout * ho * ho,), float('nan'),
+                        dtype=torch.bfloat16, device='cuda')
+    del poison
+    calls = common.folded_conv.counts['calls']
+    got = common.folded_conv(x, conv, weight, bias, relu, z)
+    torch.cuda.synchronize()
+    assert common.folded_conv.counts['calls'] == calls + 1
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert got.is_contiguous(memory_format=cl)
+    assert bool(torch.isfinite(got).all())
+    assert (got.float() - want).abs().max().item() <= \
+        1e-2 * want.abs().max().item()
+
+
+def test_flagship_folds_38_pairs_and_matches_unfolded(cuda, monkeypatch):
+    """The bf16 flagship (MVF in stages 3-4) scoring 2 clips of 8 frames
+    at 64^2: one forward runs 38 folded convs; its logits are within
+    3e-2 of max|logit| of the same model with no pair folded (the fused
+    kernel runs in both)."""
+    t = 8
+    model = build_recognizer(dict(
+        type='Recognizer2D',
+        backbone=dict(type='ResNet', depth=50, out_indices=(3,)),
+        cls_head=dict(type='TSNClsHead', spatial_type='avg',
+                      dropout_ratio=0.5, in_channels=2048, init_std=0.01,
+                      num_classes=400),
+        module_cfg=dict(type='MVF', n_segment=t, alpha=0.125,
+                        mvf_freq=(0, 0, 1, 1), mode='THW'),
+        dtype='bfloat16'), test_cfg=dict(average_clips=None))
+    model.init_weights(torch.Generator().manual_seed(0), randomize_bn=True)
+    norm = dict(mean=[123.675, 116.28, 103.53], std=[58.395, 57.12, 57.375],
+                to_rgb=True, device=True)
+    step = make_eval_step(model, norm_cfg=norm)
+    frames = np.random.RandomState(0).randint(0, 256, (1, 2 * t, 64, 64, 3),
+                                              dtype=np.uint8)
+    counts = common.folded_conv.counts
+    calls, launches = counts['calls'], fb.bottleneck_eval_cuda.launches
+    got = step(model, frames).float()
+    torch.cuda.synchronize()
+    assert counts['calls'] == calls + 38
+    assert fb.bottleneck_eval_cuda.launches == launches + 5
+    monkeypatch.setattr(resnet, 'foldable', lambda conv, norm: False)
+    want = step(model, frames).float()
+    assert counts['calls'] == calls + 38
+    assert got.shape == (2, 400) and bool(torch.isfinite(got).all())
+    assert (got - want).abs().max().item() <= 3e-2 * want.abs().max().item()
