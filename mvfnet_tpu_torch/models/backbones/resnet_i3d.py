@@ -48,6 +48,7 @@ from ..common import (BatchNorm, avg_pool3d, check_quant_stages, conv3d,
                       quant_conv3d_type, refuse_quant_training)
 from ..modules.nonlocal_attention import build_nonlocal_block
 from .resnet import _recompute_contexts
+from ...utils import tracing
 
 
 def quant_for(quant, quant_ops, kernel):
@@ -357,13 +358,16 @@ class ResNet_I3D(nn.Module):
         return self
 
     def _stem(self, x: torch.Tensor) -> torch.Tensor:
-        if self.deep_stem:
-            x = torch.relu(self.stem_bn1(self.stem_conv1(x)))
-            x = torch.relu(self.stem_bn2(self.stem_conv2(x)))
-            x = self.stem_conv3(x)
-        else:
-            x = self.conv1(x)
-        return max_pool3d(torch.relu(self.bn1(x)), *self.pool1)
+        """conv1 (or the deep stem), bn1, ReLU and pool1; spanned
+        ``model.stem`` with tracing on."""
+        with tracing.span('model.stem'):
+            if self.deep_stem:
+                x = torch.relu(self.stem_bn1(self.stem_conv1(x)))
+                x = torch.relu(self.stem_bn2(self.stem_conv2(x)))
+                x = self.stem_conv3(x)
+            else:
+                x = self.conv1(x)
+            return max_pool3d(torch.relu(self.bn1(x)), *self.pool1)
 
     def forward(self, x: torch.Tensor):
         """x: (N, C, T, H, W), any memory format; returns channels_last_3d

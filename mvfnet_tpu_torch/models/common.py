@@ -105,7 +105,10 @@ class BatchNorm(nn.BatchNorm2d):
     BNs, a CoST block's ``bn2``, the int8 path's quantized convs. In eval
     with no gradient the 2-D ResNet folds every other BatchNorm into the
     conv before it (``fold_conv_bn``, ``folded_conv``) or into the fused
-    bottleneck, and this forward does not run there.
+    bottleneck, and this forward does not run there. MVF applies its own
+    BN inline in eval and through ``normalize`` in training, not here.
+    Each forward counts in ``BatchNorm.counts['forward']`` and, with
+    tracing on, is spanned ``model.norm``.
 
     With a process group in ``sync_group`` (``set_sync_group``), train mode
     normalizes with the statistics of the whole batch across the group's
@@ -115,6 +118,9 @@ class BatchNorm(nn.BatchNorm2d):
 
     sync_group = None
     stats_frozen = False        # see frozen_norm_statistics
+    # forwards run (``'forward'``), every instance's: the BatchNorms that
+    # no fold took
+    counts = collections.Counter()
 
     def _check_input_dim(self, x):
         if x.dim() < 2:
@@ -140,8 +146,10 @@ class BatchNorm(nn.BatchNorm2d):
                                     self.eps, self.momentum, self.sync_group)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        stat = torch.promote_types(x.dtype, torch.float32)
-        return self.normalize(x.to(stat)).to(x.dtype)
+        BatchNorm.counts['forward'] += 1
+        with tracing.span('model.norm'):
+            stat = torch.promote_types(x.dtype, torch.float32)
+            return self.normalize(x.to(stat)).to(x.dtype)
 
 
 @contextlib.contextmanager
