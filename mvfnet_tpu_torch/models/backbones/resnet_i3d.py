@@ -22,7 +22,8 @@ package's for every conv, and a 2-D checkpoint is inflated by the importer
 (``utils.checkpoint.import_torch_state_dict``, ``w3d[t] = w2d / kT``).
 ``stem_s2d`` selects the JAX package's space-to-depth form of the stem
 conv, a TPU re-layout with the same parameter and the same values: the port
-runs the plain conv. ``nonlocal_cfg`` puts a non-local block
+ignores it and takes that form by the input's size and dtype
+(``common.takes_space_to_depth``). ``nonlocal_cfg`` puts a non-local block
 (``modules.nonlocal_attention.build_nonlocal_block``) after each
 bottleneck that ``nonlocal_stages`` and ``nonlocal_freq`` pick, as
 ``layer{i}.{j}.nonlocal_block``; a ``BasicBlock3D`` accepts and ignores

@@ -15,8 +15,9 @@ which its forward never uses, has no module here, as in the JAX package.
 
 ``fast_pack`` (the JAX package's time-to-channel packing of the fast
 pathway) and ``stem_s2d`` (its space-to-depth stems) are TPU re-layouts
-with the same parameters and the same scores: the port accepts both and
-runs the plain convolutions. Activation checkpointing
+with the same parameters and the same scores: the port accepts both,
+runs the fast pathway plain and takes the stems' space-to-depth form by
+the input's size and dtype (``common.takes_space_to_depth``). Activation checkpointing
 (``make_train_step(remat=True)``) checkpoints each stage, both pathways
 and the lateral after them, while training. ``lateral_type`` and
 ``lateral_op`` take the one form the JAX module builds, a conv and a

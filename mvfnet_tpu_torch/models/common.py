@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import math
 from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -296,12 +297,106 @@ def conv2d(in_channels: int, out_channels: int, kernel_size: int, *,
                   padding=padding, dilation=dilation, bias=bias)
 
 
+# A bf16 3-D conv with a stem's few input channels (3 RGB, 2 flow) and 64
+# outputs takes cuDNN's fp32 NCHW FFMA kernel behind layout conversions,
+# and still does with its input channels zero-padded to 8 or 16 (PERF.md
+# §6). Folded into channels, 2x2 pixel blocks make a spatial stride-2 conv
+# a stride-1 one over 4x the channels (16 for 3: the JAX package's
+# ``_SpaceToDepthStem3D``), which takes a bf16 tensor-core kernel and
+# beats the plain conv with 8, 24 or 45 outputs too. The floor on K = Cin
+# * kt * kh * kw and on the output count (N * Cout * T' * H' * W') comes
+# from the stems' times on the H100, forward and with the weight gradient
+# (PERF.md §6): every stem measured at 25.2 M outputs or more wins both
+# ways, from K 147 (the 1x7x7 stems, the least measured) to 1029; below
+# 18.1 M outputs the K 147 and 441 stems lose one way or both.
+S2D_MIN_K = 147
+S2D_MIN_OUTPUTS = 20_000_000
+
+
+def _s2d_axis(size: int, k: int, pad: int) -> Tuple[int, int, int]:
+    """One spatial axis of a stride-2 conv's space-to-depth form: the
+    padding put before the image (``pad`` made even, so that blocks start
+    on the image's even rows), the kernel's taps over 2-pixel blocks, and
+    the blocks the conv reads."""
+    lead = pad + pad % 2
+    taps = (k + lead - pad + 1) // 2
+    return lead, taps, (size + 2 * pad - k) // 2 + taps
+
+
+def takes_space_to_depth(conv: nn.Conv3d, shape: Sequence[int],
+                         dtype: torch.dtype, device: torch.device) -> bool:
+    """Whether ``conv`` on an input of ``shape``, ``dtype`` and ``device``
+    runs as :func:`conv3d_space_to_depth`: bf16 on the card, no groups,
+    fewer than 8 input channels (a stem), spatial stride 2 and dilation 1,
+    even height and width, and its K and output count at or above
+    ``S2D_MIN_K`` and ``S2D_MIN_OUTPUTS``."""
+    if not (device.type == 'cuda' and dtype == torch.bfloat16
+            and conv.groups == 1 and conv.in_channels < 8
+            and tuple(conv.stride[1:]) == (2, 2)
+            and tuple(conv.dilation[1:]) == (1, 1)
+            and shape[3] % 2 == 0 and shape[4] % 2 == 0):
+        return False
+    kt, kh, kw = conv.kernel_size
+    t_out = (shape[2] + 2 * conv.padding[0] - conv.dilation[0] * (kt - 1)
+             - 1) // conv.stride[0] + 1
+    outputs = shape[0] * conv.out_channels * t_out * math.prod(
+        (size + 2 * pad - k) // 2 + 1
+        for size, pad, k in zip(shape[3:], conv.padding[1:], (kh, kw)))
+    return (conv.in_channels * kt * kh * kw >= S2D_MIN_K
+            and outputs >= S2D_MIN_OUTPUTS)
+
+
+def conv3d_space_to_depth(x: torch.Tensor, weight: torch.Tensor,
+                          bias: Optional[torch.Tensor], stride, padding,
+                          dilation) -> torch.Tensor:
+    """``F.conv3d(x, weight, bias, stride, padding, dilation)``, no groups,
+    spatial stride 2 and dilation 1, even H and W, as a spatial stride-1
+    conv over 2x2 pixel blocks folded into channels (dy, dx, c), c the
+    input channels made even. One copy writes the padded, folded input
+    into a zeroed buffer; the weight's taps are zero-padded and folded the
+    same way. The zeros add exact zeros: the same sums in another order.
+    Differentiable in ``x`` and ``weight``; the output is channels_last_3d."""
+    n, c, t, h, w = x.shape
+    f, _, kt, kh, kw = weight.shape
+    lh, th, hb = _s2d_axis(h, kh, padding[1])
+    lw, tw, wb = _s2d_axis(w, kw, padding[2])
+    cp = c + c % 2
+    rows, cols = min(h, 2 * hb - lh), min(w, 2 * wb - lw)
+    blocks = x.new_zeros((n, t, hb, wb, 2, 2, cp))
+    src = x.permute(0, 2, 3, 4, 1)[:, :, :rows, :cols]
+    blocks[:, :, lh // 2:(lh + rows) // 2, lw // 2:(lw + cols) // 2, ...,
+           :c] = src.reshape(n, t, rows // 2, 2, cols // 2, 2, c).permute(
+               0, 1, 2, 4, 3, 5, 6)
+    xs = blocks.view(n, t, hb, wb, 4 * cp).permute(0, 4, 1, 2, 3)
+    ws = F.pad(weight, (lw - padding[2], 2 * tw - kw - lw + padding[2],
+                        lh - padding[1], 2 * th - kh - lh + padding[1],
+                        0, 0, 0, cp - c))
+    ws = ws.reshape(f, cp, kt, th, 2, tw, 2).permute(
+        0, 4, 6, 1, 2, 3, 5).reshape(f, 4 * cp, kt, th, tw)
+    return F.conv3d(xs, ws.contiguous(memory_format=torch.channels_last_3d),
+                    bias, (stride[0], 1, 1), (padding[0], 0, 0),
+                    (dilation[0], 1, 1))
+
+
 class Conv3d(nn.Conv3d):
-    """``nn.Conv3d`` that casts its fp32 weight to the input's dtype."""
+    """``nn.Conv3d`` that casts its fp32 weight to the input's dtype.
+
+    A bf16 stem on the card (``takes_space_to_depth``) runs in the
+    space-to-depth form of :func:`conv3d_space_to_depth`, its input
+    channels folded and zero-padded: each such forward counts in
+    ``Conv3d.counts['channels_padded']``, 1 a dense I3D video, 0 in any
+    2-D model."""
+
+    counts = collections.Counter()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(x.dtype)
-        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+        weight = self.weight.to(x.dtype)
+        if takes_space_to_depth(self, x.shape, x.dtype, x.device):
+            Conv3d.counts['channels_padded'] += 1
+            return conv3d_space_to_depth(x, weight, bias, self.stride,
+                                         self.padding, self.dilation)
+        return self._conv_forward(x, weight, bias)
 
 
 def conv3d(in_channels: int, out_channels: int, kernel: Tuple[int, ...], *,

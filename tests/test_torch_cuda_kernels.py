@@ -4,9 +4,10 @@ path's kinds of shape), a small quantized R50+MVF in bf16 that must launch
 the int8 kernel and no fused one, a small train step that must not launch them, a bf16 train loop epoch whose
 mid-train evaluation must, a feature-extraction pass that must, the eval
 loop's pinned-memory prefetch, the synced BatchNorm on 2-D and 3-D maps,
-a small I3D in bf16 that must match the CPU and launch no kernel, and the
+a small I3D in bf16 that must match the CPU and launch no kernel, the
 eval BatchNorm fold: cuDNN's bf16 conv epilogue against the plain float32
-form, and the bf16 flagship folded against its unfolded path.
+form, and the bf16 flagship folded against its unfolded path, and I3D's
+stem conv in its space-to-depth form on bf16 tensor cores.
 
 Every test here carries the ``cuda`` marker and skips without a GPU. This
 file imports neither JAX nor the JAX package, so it also runs on a machine
@@ -682,3 +683,52 @@ def test_flagship_folds_38_pairs_and_matches_unfolded(cuda, monkeypatch):
     assert counts['calls'] == calls + 38
     assert got.shape == (2, 400) and bool(torch.isfinite(got).all())
     assert (got - want).abs().max().item() <= 3e-2 * want.abs().max().item()
+
+
+def test_i3d_stem_conv_runs_on_bf16_tensor_cores(cuda):
+    """I3D-R50's stem (the dense I3D cell's 5x7x7/2 conv to 64 channels)
+    on 2 clips of 32 frames at 256^2 in bf16: the profiled ``model.stem``
+    runs a bf16 conv kernel and neither cuDNN's fp32 conv nor its NHWC to
+    NCHW conversion; the conv is within a bf16 rounding of the float32
+    conv of the same operands; ``Conv3d.counts['channels_padded']`` grows
+    by 1 a forward."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from mvfnet_tpu_torch.models.backbones.resnet_i3d import ResNet_I3D
+    from mvfnet_tpu_torch.utils import tracing
+    backbone = ResNet_I3D(depth=50, conv1_kernel=(5, 7, 7), conv1_stride_t=2,
+                          pool1_stride_t=2, norm_cfg=dict(type='BN3d'))
+    backbone.init_weights(torch.Generator().manual_seed(0))
+    backbone.cuda().eval()
+    x = torch.randn((2, 3, 32, 256, 256), generator=torch.Generator(
+        device='cuda').manual_seed(1), device='cuda').to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last_3d)
+    counts = common.Conv3d.counts
+    before = counts['channels_padded']
+    with torch.no_grad():
+        backbone._stem(x)
+        torch.cuda.synchronize()
+        assert counts['channels_padded'] == before + 1
+        tracing.enable()
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                backbone._stem(x)
+                torch.cuda.synchronize()
+        finally:
+            tracing.disable()
+            tracing.clear()
+        assert counts['channels_padded'] == before + 2
+        got = backbone.conv1(x).float()
+    events = prof.events()
+    assert 'model.stem' in {e.name for e in events}
+    kernels = [e.name for e in events if e.device_type == DeviceType.CUDA]
+    assert any('fprop' in k and 'bf16bf16' in k for k in kernels), kernels
+    assert not [k for k in kernels if 'f32f32' in k or 'nhwcToNchw' in k], \
+        kernels
+    conv = backbone.conv1
+    want = F.conv3d(x.float(), conv.weight.to(torch.bfloat16).float(), None,
+                    conv.stride, conv.padding)
+    assert got.shape == want.shape == (2, 64, 16, 128, 128)
+    assert (got - want).abs().max().item() <= \
+        2 ** -8 * want.abs().max().item()
