@@ -48,6 +48,7 @@ from mvfnet_tpu_torch.utils.checkpoint import (import_torch_state_dict,
                                                jax_entries,
                                                jax_variables_from_state_dict,
                                                state_dict_from_jax)
+from torch_reference import jax_forward, jax_shapes
 
 T, B, HW, NUM_CLASSES = 8, 2, 32, 5
 RTOL, ATOL = 1e-6, 1e-8                 # forward logits and features
@@ -105,26 +106,6 @@ def port_model(cfg, seed=0):
     return port
 
 
-_SHAPES = {}
-
-
-def jax_shapes(cfg, shape=(1, 1, T, HW, HW, 3)):
-    """The JAX model's variable shapes, traced in float32 (its init casts
-    to the float32 params' dtype in places); one trace per config."""
-    key = (repr(cfg), shape)
-    if key not in _SHAPES:
-        jmodel = jax_build(cfg, test_cfg=dict(average_clips=None))
-        x64 = jax.config.jax_enable_x64
-        jax.config.update('jax_enable_x64', False)
-        try:
-            _SHAPES[key] = jax.eval_shape(lambda: jmodel.init(
-                jax.random.PRNGKey(0), jnp.zeros(shape), None,
-                return_loss=False))
-        finally:
-            jax.config.update('jax_enable_x64', x64)
-    return _SHAPES[key]
-
-
 def tree_shapes(tree):
     return {jax.tree_util.keystr(p): tuple(v.shape)
             for p, v in jax.tree_util.tree_leaves_with_path(tree)}
@@ -147,12 +128,6 @@ def template(cfg, shape=(1, 1, T, HW, HW, 3)):
 
 def clips(seed, lead=(B,), t=T):
     return np.random.RandomState(seed).randn(*lead, 1, t, HW, HW, 3) * 0.5
-
-
-def jax_forward(cfg, variables, x):
-    jmodel = jax_build(cfg, test_cfg=dict(average_clips=None))
-    return np.asarray(jax.jit(lambda v, x: jmodel.apply(
-        v, x, None, return_loss=False))(variables, jnp.asarray(x)))
 
 
 def jax_trajectory(cfg, variables, imgs, labels, recipe=RECIPE):
@@ -460,7 +435,7 @@ def test_param_labels_match_jax():
     cfg = CASES['r50_caffe_3x3x3_avg_down_deep_stem']
     cfg = dict(cfg, backbone=dict(cfg['backbone'], frozen_stages=1,
                                   norm_frozen=True))
-    shapes = jax_shapes(cfg)
+    shapes = jax_shapes(cfg, (1, 1, T, HW, HW, 3))
     labels = jax_optim.masked_labels(
         shapes['params'], _frozen_prefixes_from_backbone(cfg['backbone']))
     names = {path: name for coll, path, name, _ in jax_entries(

@@ -55,11 +55,14 @@ def eval_model(path):
 
 @pytest.fixture(scope='module')
 def i3d():
-    torch.set_num_threads(4)
+    # at most 4 threads, and no more than a pytest-xdist worker's share
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(4, threads))
     model, step = eval_model(I3D)
     clip = np.random.default_rng(5).integers(0, 256, (1, 1, 8, 32, 32, 3),
                                              dtype=np.uint8)
-    return model, step, clip
+    yield model, step, clip
+    torch.set_num_threads(threads)
 
 
 def forwards():

@@ -25,7 +25,6 @@ import optax
 
 from mvfnet_tpu.engine import optim as jax_optim
 from mvfnet_tpu.engine.train_loop import _frozen_prefixes_from_backbone
-from mvfnet_tpu.models import build_recognizer as jax_build
 from mvfnet_tpu_torch.engine.optim import (build_lr_schedule,
                                            build_optimizer,
                                            frozen_prefixes_from_backbone,
@@ -35,6 +34,7 @@ from mvfnet_tpu_torch.engine.train_step import (make_eval_step,
 from mvfnet_tpu_torch.models import build_recognizer
 from mvfnet_tpu_torch.models.heads.tsn_head import TSNClsHead
 from mvfnet_tpu_torch.utils.checkpoint import jax_entries
+from torch_reference import jax_shapes
 
 T, HW, NUM_CLASSES = 2, 32, 8
 
@@ -96,14 +96,12 @@ def test_milestone_inside_warmup_decays_first():
 
 # -- parameter labels -------------------------------------------------------
 
-def _jax_params_shapes(model):
-    """The JAX recognizer's params as zero arrays (no compile)."""
-    shapes = jax.eval_shape(
-        lambda: model.init(jax.random.PRNGKey(0),
-                           jnp.zeros((1, T, HW, HW, 3)),
-                           jnp.zeros((1,), jnp.int32), return_loss=True))
+def _jax_variables():
+    """The JAX recognizer's variables as zero arrays (no compile): one
+    trace for every case, as ``frozen_stages`` and ``norm_frozen`` change
+    the labels, not the variables."""
     return jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype),
-                                  shapes)
+                                  jax_shapes(model_cfg(), (1, T, HW, HW, 3)))
 
 
 @pytest.mark.parametrize('backbone', [
@@ -112,7 +110,7 @@ def _jax_params_shapes(model):
     ids=['none', 'frozen_stages_1', 'norm_frozen', 'both'])
 def test_param_labels_match_jax(backbone):
     cfg = model_cfg(**backbone)
-    variables = _jax_params_shapes(jax_build(cfg))
+    variables = _jax_variables()
     want_tree = jax_optim.masked_labels(
         variables['params'],
         _frozen_prefixes_from_backbone(cfg['backbone']))

@@ -58,6 +58,7 @@ from test_models import r50_mvf_cfg
 from test_torch_eval import dataset_cfg, setup  # noqa: F401
 from test_torch_i3d import i3d_backbone, jax_shapes, one_thread, tree_shapes
 from test_torch_slowfast_x3d import x3d_backbone
+from torch_reference import jax_forward
 
 T, B, HW, NUM_CLASSES = 4, 2, 32, 5
 RTOL, ATOL = 1e-6, 1e-8
@@ -415,8 +416,7 @@ def _port_and_jax(name, cfg, shape, calib, x, monkeypatch):
     assert tree_shapes({k: variables[k] for k in keys}) == \
         tree_shapes({k: shapes[k] for k in keys})
     rec.clear()
-    want = np.asarray(jax.jit(lambda v, x: jmodel.apply(
-        v, x, None, return_loss=False))(variables, jnp.asarray(x)))
+    want = jax_forward(cfg, variables, x)
     with torch.no_grad():
         got = port(torch.from_numpy(x), None, return_loss=False).numpy()
     assert got.dtype == np.float64 and got.shape == (B, NUM_CLASSES)

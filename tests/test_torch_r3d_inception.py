@@ -24,7 +24,6 @@ import torch.nn.functional as F
 import jax
 import jax.numpy as jnp
 
-from mvfnet_tpu.models import build_recognizer as jax_build
 from mvfnet_tpu.models.backbones import inception_v1_i3d as jax_inception
 from mvfnet_tpu.utils.checkpoint import import_torch_weights
 from mvfnet_tpu_torch.models import build_backbone, build_recognizer
@@ -34,6 +33,7 @@ from mvfnet_tpu_torch.utils.checkpoint import (import_torch_state_dict,
                                                state_dict_from_jax)
 from test_torch_i3d import (ATOL, RTOL, assert_step_matches_jax, jax_shapes,
                             one_thread, tree_shapes)
+from torch_reference import jax_forward
 
 B, HW, NUM_CLASSES = 2, 32, 5
 
@@ -92,9 +92,7 @@ def test_forward_and_bridge_match_jax(name):
     port, variables, shape = _port(name)
     cfg = CASES[name][0]
     x = np.random.RandomState(1).randn(B, *shape[1:]) * 0.5
-    jmodel = jax_build(cfg, test_cfg=dict(average_clips=None))
-    want = np.asarray(jax.jit(lambda v, x: jmodel.apply(
-        v, x, None, return_loss=False))(variables, jnp.asarray(x)))
+    want = jax_forward(cfg, variables, x)
     with torch.no_grad():
         got = port(torch.from_numpy(x), None, return_loss=False).numpy()
     assert got.shape == (B, NUM_CLASSES)

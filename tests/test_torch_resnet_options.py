@@ -71,6 +71,7 @@ from mvfnet_tpu_torch.utils.checkpoint import (import_torch_state_dict,
                                                load_checkpoint,
                                                save_msgpack_checkpoint,
                                                state_dict_from_jax)
+from torch_reference import jax_forward
 
 T, B, HW, NUM_CLASSES = 2, 2, 32, 5
 RTOL, ATOL = 1e-6, 1e-8                 # forward logits
@@ -232,9 +233,7 @@ def test_forward_matches_jax(name):
     port = port_model(cfg).eval()
     variables = jax_variables(port, cfg)
     x = frames(1)
-    jmodel = jax_build(cfg, test_cfg=dict(average_clips=None))
-    want = np.asarray(jax.jit(lambda v, x: jmodel.apply(
-        v, x, None, return_loss=False))(variables, jnp.asarray(x)))
+    want = jax_forward(cfg, variables, x)
     with torch.no_grad():
         got = port(torch.from_numpy(x), None, return_loss=False).numpy()
     assert got.shape == (B, NUM_CLASSES) and got.dtype == np.float64
@@ -406,10 +405,7 @@ def test_avg_down_at_16x16_pins_the_jax_empty_map():
                      dilations=(1, 1, 1, 1))
     port = port_model(cfg).eval()
     x = np.random.RandomState(1).randn(B, T, 16, 16, 3)
-    jmodel = jax_build(cfg, test_cfg=dict(average_clips=None))
-    want = np.asarray(jax.jit(lambda v, x: jmodel.apply(
-        v, x, None, return_loss=False))(jax_variables(port, cfg),
-                                        jnp.asarray(x)))
+    want = jax_forward(cfg, jax_variables(port, cfg), x)
     with torch.no_grad():
         got = port(torch.from_numpy(x), None, return_loss=False).numpy()
     assert got.shape == want.shape == (B, NUM_CLASSES)

@@ -4,9 +4,11 @@ the non-strict weight importer.
 The data are the JAX engine tests' (``tests/test_engine.py``): 4 rawframe
 videos of 8 JPEGs of 48x48, 2 classes, ``RandomResizedCrop`` 32, two videos
 a batch, so 2 iterations an epoch. The model is R18 + MVF at T=2, as the
-JAX engine tests build it: the loop's semantics do not depend on the
-depth. The importer cases build R50 + MVF, the vocabulary of the released
-and torchvision checkpoints.
+JAX engine tests build it, cut to its first two stages with MVF in the
+second (a stride-2 block and a stride-1 one): the loop's semantics do not
+depend on the depth. The importer cases and the pretrained backbone build
+the whole R50 + MVF, the vocabulary of the released and torchvision
+checkpoints.
 
 - The port's ``train_network(validate=True)`` against the JAX package's on
   one device, 2 epochs with the recipe (SGD nesterov, wd 1e-4, clip at 40,
@@ -43,7 +45,6 @@ import pytest
 import torch
 
 import jax
-import jax.numpy as jnp
 
 import mvfnet_tpu.data as jdata
 from mvfnet_tpu.config import Config as JaxConfig
@@ -69,6 +70,7 @@ from mvfnet_tpu_torch.utils.checkpoint import (
     import_torch_state_dict, jax_entries, jax_variables_from_state_dict,
     load_checkpoint, load_torch_state_dict, save_msgpack_checkpoint,
     state_dict_from_jax)
+from torch_reference import jax_shapes
 
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), '..'))
 T, CROP, NUM_CLASSES = 2, 32, 2
@@ -80,17 +82,22 @@ LOG_LINE = re.compile(
 
 
 def model_cfg(dropout=0.0, modality='RGB', pretrained=None, depth=18):
+    """R18's first two stages with MVF in the second, or the whole R50
+    with MVF in its last two."""
+    stages = 2 if depth < 50 else 4
     return dict(
         type='Recognizer2D', modality=modality,
-        backbone=dict(type='ResNet', depth=depth, out_indices=(3,),
-                      norm_eval=False, pretrained=pretrained,
+        backbone=dict(type='ResNet', depth=depth, num_stages=stages,
+                      out_indices=(stages - 1,), norm_eval=False,
+                      pretrained=pretrained,
                       norm_cfg=dict(type='BN', requires_grad=True)),
         cls_head=dict(type='TSNClsHead', spatial_size=-1, spatial_type='avg',
                       dropout_ratio=dropout,
-                      in_channels=512 if depth < 50 else 2048, init_std=0.01,
+                      in_channels=128 if depth < 50 else 2048, init_std=0.01,
                       num_classes=NUM_CLASSES),
         module_cfg=dict(type='MVF', n_segment=T, alpha=0.125,
-                        mvf_freq=(0, 0, 1, 1), mode='THW'))
+                        mvf_freq=(0, 1) if depth < 50 else (0, 0, 1, 1),
+                        mode='THW'))
 
 
 def dataset_cfg(root, ann, test_mode):
@@ -329,15 +336,11 @@ def test_dropout_masks_follow_the_step():
 
 
 def jax_template(modality='RGB', depth=18):
-    """The JAX recognizer's variables, shaped by ``eval_shape`` and filled
-    with seeded numbers."""
-    jmodel = jax_build(dict(model_cfg(modality=modality, depth=depth),
-                            dtype=None))
+    """The JAX recognizer's variables, shaped by ``eval_shape`` (one trace
+    a model) and filled with seeded numbers."""
     c = 10 if modality == 'Flow' else 3
-    shapes = jax.eval_shape(
-        lambda: jmodel.init(jax.random.PRNGKey(0),
-                            jnp.zeros((1, T, CROP, CROP, c), jnp.float32),
-                            None, return_loss=False))
+    shapes = jax_shapes(dict(model_cfg(modality=modality, depth=depth),
+                             dtype=None), (1, T, CROP, CROP, c))
     rng = np.random.RandomState(0)
     return jax.tree_util.tree_map(
         lambda s: (rng.rand(*s.shape) + 0.5).astype(np.float32),
