@@ -1064,7 +1064,8 @@ def phase_data(root, ann):
         fb.bottleneck_eval_cuda.launches = 0
         fb.bottleneck_eval_cuda.launches_by_shape.clear()
         # the timed pass records the eval loop's time and keeps the
-        # stager that uploads its batches, for its byte counters
+        # stager that uploads its batches, for its byte counters; the
+        # eval step, handed the batches on the card, makes none
         evaluate, eval_s = eval_mod.evaluate_dataset, []
         stager_cls, stagers = prefetch.PinnedStager, []
 
@@ -1169,6 +1170,7 @@ def phase_data(root, ann):
             loader_workers=cfg.data['workers_per_gpu'],
             bytes_uploaded_per_video=stager.bytes_uploaded
             / stager.uploads,
+            upload_chunks=stager.chunks, upload_slot_waits=stager.slot_waits,
             upload_dtype=str(sample['img_group'].dtype),
             htod_copies=htod, device_busy_ms=prof['busy_ms'],
             device_idle_share=prof['idle_share'],
@@ -1384,7 +1386,12 @@ def phase_train_cli(root):
                            for k, v in op_ms.items()},
             bytes_uploaded_per_iter=loop.stager.bytes_uploaded
             / loop.stager.uploads,
-            upload_dtype=str(loop.stager._bufs[0].dtype),
+            # 1 for uint8 frames (normalized on the card), 4 for float32
+            upload_bytes_per_element=loop.stager.bytes_uploaded
+            / loop.stager.uploads / (loop.loader.batch_size
+                                     * int(np.prod(video.shape[1:]))),
+            upload_chunks=loop.stager.chunks,
+            upload_slot_waits=loop.stager.slot_waits,
             epoch_device_busy_ms=prof['busy_ms'],
             epoch_device_idle_share=prof['idle_share'],
             profiled_epoch_ms=prof['wall_ms'],

@@ -7,8 +7,8 @@ format, TensorBoard scalars, ``.pth`` checkpoints and mid-train top-k
 evaluation through ``engine.eval.evaluate_dataset``. One process drives one
 card: the threaded loader decodes and augments on the host, each batch's
 frames go up through one ``prefetch.PinnedStager`` (reused across epochs)
-while the step before computes, and the LR schedule and the clip live in
-the step.
+while the step before computes (the labels through the step's own), and
+the LR schedule and the clip live in the step.
 
 In a process group (``parallel.init_distributed``) each rank loads its
 shard of every epoch, ``videos_per_gpu`` videos a step, so the global

@@ -23,6 +23,7 @@ import torch
 
 from ..ops.normalize import maybe_device_normalize
 from ..utils import tracing
+from .prefetch import StepUpload
 
 
 def resolve_device(device: Union[None, str, torch.device]) -> torch.device:
@@ -35,17 +36,6 @@ def resolve_device(device: Union[None, str, torch.device]) -> torch.device:
     return device
 
 
-def _to_device(x, device: torch.device) -> torch.Tensor:
-    """``x`` on ``device``; a host array copied from pageable memory to a
-    CUDA device is spanned ``upload.pageable`` (``bytes``)."""
-    if isinstance(x, np.ndarray):
-        x = torch.from_numpy(x)
-    if x.device.type == 'cpu' and device.type == 'cuda':
-        with tracing.span('upload.pageable', bytes=x.nbytes):
-            return x.to(device, non_blocking=True)
-    return x.to(device, non_blocking=True)
-
-
 def make_eval_step(model: torch.nn.Module,
                    norm_cfg: Optional[Dict[str, Any]] = None,
                    device: Union[None, str, torch.device] = None,
@@ -56,19 +46,22 @@ def make_eval_step(model: torch.nn.Module,
     ``imgs`` is a ``(B, S, H, W, C)`` array or tensor, ``(B, clips, T, H,
     W, C)`` for a ``Recognizer3D`` (uint8 when the pipeline deferred
     ``Normalize`` to the device, ``norm_cfg['device']``).
-    The frames move to ``device`` (CUDA by default), are normalized there,
-    and go through the model in ``eval()`` under ``torch.inference_mode()``.
-    With tracing on, ``step.eval`` spans a call (``req``: the step's call
-    number), with the upload, ``step.normalize`` and ``step.forward``
-    inside.
+    The frames move to ``device`` (CUDA by default) through
+    ``eval_step.upload`` (``prefetch.StepUpload``: host arrays staged
+    through its pinned ring, CUDA tensors passed through), are normalized
+    there, and go through the model in ``eval()`` under
+    ``torch.inference_mode()``. With tracing on, ``step.eval`` spans a call
+    (``req``: the step's call number), with ``upload.stage``,
+    ``step.normalize`` and ``step.forward`` inside.
     """
     device = resolve_device(device)
     model.to(device).eval()
     calls = itertools.count()
+    upload = StepUpload(device)
 
     def eval_step(model, imgs):
         with tracing.span('step.eval', req=next(calls)):
-            imgs = _to_device(imgs, device)
+            imgs = upload(imgs)
             with torch.inference_mode():
                 with tracing.span('step.normalize'):
                     imgs = maybe_device_normalize(imgs, norm_cfg,
@@ -78,6 +71,7 @@ def make_eval_step(model: torch.nn.Module,
                         return model.forward_extract_feat(imgs)
                     return model(imgs, None, return_loss=False)
 
+    eval_step.upload = upload
     return eval_step
 
 
@@ -166,8 +160,11 @@ def make_train_step(model: torch.nn.Module,
     SlowFast pathways) are recomputed in the backward instead of kept,
     with BatchNorm's running statistics moved once.
 
+    The inputs reach the device through ``train_step.upload``
+    (``prefetch.StepUpload``, as in ``make_eval_step``).
+
     With tracing on, ``train.step`` spans a call (``req``: the step's
-    number), with the inputs' ``upload.pageable``, then ``train.forward``
+    number), with the inputs' ``upload.stage``, then ``train.forward``
     (the device normalize, the forward and the loss), ``train.backward``,
     ``train.clip``, ``train.optimizer`` and, at world > 1,
     ``train.reduce`` inside.
@@ -189,6 +186,7 @@ def make_train_step(model: torch.nn.Module,
     # the head keeps rows rank*B.. of the global batch's dropout mask
     model.cls_head.dropout_shard = (1, 0) if local_bn else (world, rank)
     mask_rank = rank if world > 1 and local_bn else None
+    upload = StepUpload(device)
 
     def train_step(imgs, labels, generator=None) -> Dict[str, Any]:
         with tracing.span('train.step', req=state.step):
@@ -198,8 +196,8 @@ def make_train_step(model: torch.nn.Module,
         if generator is None and step_generator is not None:
             generator = step_generator.manual_seed(
                 dropout_seed(seed, state.step, mask_rank))
-        imgs = _to_device(imgs, device)
-        labels = _to_device(labels, device)
+        imgs = upload(imgs)
+        labels = upload(labels)
         with tracing.span('train.forward'):
             imgs = maybe_device_normalize(imgs, norm_cfg, model.compute_dtype)
             forward.train()
@@ -239,4 +237,5 @@ def make_train_step(model: torch.nn.Module,
         return dict(zip(keys, mean.unbind()))
 
     train_step.state = state
+    train_step.upload = upload
     return train_step

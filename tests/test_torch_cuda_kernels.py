@@ -2,8 +2,9 @@
 (the fused bottleneck, and the int8 convolution bit for bit at the int8
 path's kinds of shape), a small quantized R50+MVF in bf16 that must launch
 the int8 kernel and no fused one, a small train step that must not launch them, a bf16 train loop epoch whose
-mid-train evaluation must, a feature-extraction pass that must, the eval
-loop's pinned-memory prefetch, the synced BatchNorm on 2-D and 3-D maps,
+mid-train evaluation must, a feature-extraction pass that must, the
+pinned upload ring (byte for byte, and the eval step's scores of a staged
+video against an uploaded one), the synced BatchNorm on 2-D and 3-D maps,
 a small I3D in bf16 that must match the CPU and launch no kernel, the
 eval BatchNorm fold: cuDNN's bf16 conv epilogue against the plain float32
 form, and the bf16 flagship folded against its unfolded path, and I3D's
@@ -252,8 +253,12 @@ def test_train_loop_epoch_in_bf16_evaluates_through_the_kernel(cuda,
     assert len(losses) == 2 and all(np.isfinite(losses))
     assert train_launches == [start, start]
     assert (tmp_path / 'work' / 'epoch_1.pth').exists()
-    assert loop.stager.uploads == 2 and loop.stager._bufs[0].dtype == \
-        torch.uint8
+    # two batches of 2 videos x 2 frames at 64^2, one byte an element
+    # (uint8); the step takes the frames on the card and stages the labels
+    assert loop.stager.uploads == 2 and \
+        loop.stager.bytes_uploaded == 2 * 2 * 2 * 64 * 64 * 3
+    assert loop.train_step.upload.passed == 2 and \
+        loop.train_step.upload.staged == 2
     grown = {k: v - before.get(k, 0) for k, v in
              fb.bottleneck_eval_cuda.launches_by_shape.items()
              if v != before.get(k, 0)}
@@ -267,8 +272,9 @@ def test_feature_pass_launches_the_kernel_and_matches_plain(cuda, tmp_path,
     """``evaluate_dataset(extract_feat=True)`` of a bf16 R50+MVF with
     ``fcn_testing`` on 3 tiny rawframe videos (uint8 frames normalized on
     the card): one row of 2 clip volumes x 2048 a video, 2 + 3 fused
-    launches a video, and features within 3e-2 of the largest of the same
-    pass with the kernel's plain version."""
+    launches a video, one ``PinnedStager`` for the pass, and features
+    within 3e-2 of the largest of the same pass with the kernel's plain
+    version."""
     import cv2
     from mvfnet_tpu_torch.data import build_dataset
     from mvfnet_tpu_torch.engine.eval import evaluate_dataset
@@ -304,9 +310,20 @@ def test_feature_pass_launches_the_kernel_and_matches_plain(cuda, tmp_path,
                         mvf_freq=(0, 0, 1, 1), mode='THW'),
         dtype='bfloat16'), test_cfg=dict(average_clips=None))
     model.init_weights(torch.Generator().manual_seed(0), randomize_bn=True)
+    from mvfnet_tpu_torch.engine import prefetch
+    stagers = []
+
+    class Kept(prefetch.PinnedStager):
+        def __init__(self, device):
+            super().__init__(device)
+            stagers.append(self)
+    monkeypatch.setattr(prefetch, 'PinnedStager', Kept)
     before = dict(fb.bottleneck_eval_cuda.launches_by_shape)
     feats = evaluate_dataset(model, dataset, extract_feat=True,
                              norm_cfg=norm)
+    # the loader's stager uploads each video; the eval step, handed them
+    # on the card, makes none
+    assert len(stagers) == 1 and stagers[0].uploads == 3
     grown = {k: v - before.get(k, 0) for k, v in
              fb.bottleneck_eval_cuda.launches_by_shape.items()
              if v != before.get(k, 0)}
@@ -319,27 +336,127 @@ def test_feature_pass_launches_the_kernel_and_matches_plain(cuda, tmp_path,
     assert np.abs(feats - plain).max() <= 3e-2 * np.abs(plain).max()
 
 
-def test_prefetch_stages_through_two_pinned_buffers(cuda):
-    """Batches reach the card intact, through two pinned buffers reused in
-    turn (a smaller last batch uses their leading rows; another frame
-    shape reallocates them), and the counters add up."""
-    from mvfnet_tpu_torch.engine.prefetch import (PinnedStager,
-                                                  prefetch_to_device)
-    rng = np.random.RandomState(0)
-    arrays = [rng.randint(0, 256, (n, 5, 7, 3), dtype=np.uint8)
-              for n in (3, 3, 3, 2)] + [rng.rand(2, 4).astype(np.float32)]
-    stager = PinnedStager(torch.device('cuda'))
-    got, bufs = [], []
-    for t in prefetch_to_device(arrays, 'cuda', stager):
-        assert t.device.type == 'cuda'
-        bufs.append(tuple(b.data_ptr() for b in stager._bufs))
-        got.append((t + 0).cpu().numpy())   # work on the current stream
+def test_prefetch_stages_through_the_pinned_ring(cuda):
+    """Host arrays reach the card byte for byte through the ring of pinned
+    chunk slots: distinct arrays staged back to back with no wait between,
+    each larger than the whole ring (so slots are reused while DMA is in
+    flight), and arrays of 0 and 1 bytes, a chunk and a byte either side,
+    a 0-d one, a strided one, an int64, a float32, an unpinned bf16
+    tensor and a permuted one (which keeps its layout on the card); a
+    pinned tensor goes to the card directly; a CUDA tensor
+    passes a step's upload and a host array is staged there; the counters
+    add up."""
+    from mvfnet_tpu_torch.engine import prefetch
+    chunk, slots = prefetch.CHUNK_BYTES, prefetch.SLOTS
+    rng = np.random.default_rng(0)
+    big = [rng.integers(0, 256, (slots * chunk + chunk // 2 + 7 + i,),
+                        dtype=np.uint8).reshape(-1, 1) for i in range(4)]
+    odd = [np.zeros(0, np.uint8), np.array([7], np.uint8),
+           rng.integers(0, 256, chunk - 1, dtype=np.uint8),
+           rng.integers(0, 256, chunk, dtype=np.uint8),
+           rng.integers(0, 256, chunk + 1, dtype=np.uint8),
+           np.array(3.5, np.float32),
+           rng.integers(0, 256, (64, 48, 3), dtype=np.uint8)[:, ::2],
+           rng.integers(-2 ** 40, 2 ** 40, chunk // 8 + 3, dtype=np.int64),
+           rng.standard_normal(chunk // 4 * 3 + 5).astype(np.float32),
+           torch.randn(chunk // 2 + 9).to(torch.bfloat16),
+           # NCHW memory seen as NHWC (the dense cells' pool): sent as it
+           # lies, in its own layout
+           torch.from_numpy(rng.integers(0, 256, (2, 3, 640, 480),
+                                         dtype=np.uint8)).permute(
+                                             0, 2, 3, 1).numpy()]
+    arrays = big + odd
+    stager = prefetch.PinnedStager(torch.device('cuda'))
+    staged = [stager.stage(a) for a in arrays]
+    assert staged[-1][0].stride() == (3 * 640 * 480, 480, 1, 640 * 480)
+    got = [prefetch._ready(s).clone() for s in staged]   # current stream
     for g, a in zip(got, arrays):
-        np.testing.assert_array_equal(g, a)
-    assert all(b.is_pinned() for b in stager._bufs)
-    assert len(set(bufs[:3])) == 1 and bufs[3] != bufs[0]
+        assert g.device.type == 'cuda'
+        assert torch.equal(g.cpu(), torch.from_numpy(np.array(a))
+                           if isinstance(a, np.ndarray) else a)
+    nbytes = [a.nbytes for a in arrays]
     assert stager.uploads == len(arrays)
-    assert stager.bytes_uploaded == sum(a.nbytes for a in arrays)
+    assert stager.bytes_uploaded == sum(nbytes)
+    assert stager.chunks == sum(len(prefetch.chunk_plan(n)) for n in nbytes)
+    assert 0 <= stager.slot_waits <= stager.chunks
+    assert len(stager._slots) == slots
+    assert all(s.is_pinned() for s in stager._slots)
+
+    # the loaders' double buffer over the same stager
+    for t, a in zip(prefetch.prefetch_to_device(big, 'cuda', stager), big):
+        assert np.array_equal((t + 0).cpu().numpy(), a)
+    chunks = stager.chunks
+    pinned = torch.from_numpy(big[0]).pin_memory()
+    t = prefetch._ready(stager.stage(pinned))
+    assert torch.equal(t.cpu(), pinned)
+    assert stager.chunks == chunks and \
+        stager.uploads == len(arrays) + len(big) + 1
+
+    upload = prefetch.StepUpload(torch.device('cuda'))
+    on_card = torch.from_numpy(big[1]).cuda()
+    assert upload(on_card) is on_card
+    assert upload.passed == 1 and upload.staged == 0 and upload.stager is None
+    assert torch.equal(upload(big[2]).cpu(), torch.from_numpy(big[2]))
+    assert upload.staged == 1 and upload.stager.chunks == len(
+        prefetch.chunk_plan(big[2].nbytes))
+
+
+def _eval_case(family):
+    """A bf16 recognizer with device normalization and a uint8 dense video
+    larger than one chunk of the upload ring: a small I3D (ResNet-18 on
+    two stages, 6 views of 32 frames at 256^2) or the flagship (MVF in
+    stages 3-4, 24 clips of 8 frames at 256^2), 37.7 MB each."""
+    if family == 'i3d':
+        cfg = dict(type='Recognizer3D', backbone=dict(
+            type='ResNet_I3D', depth=18, num_stages=2, out_indices=(1,),
+            conv1_kernel=(5, 7, 7), conv1_stride_t=2, pool1_stride_t=2,
+            norm_cfg=dict(type='BN3d')),
+            cls_head=dict(type='I3DClsHead', in_channels=128, num_classes=7))
+        shape = (1, 6, 32, 256, 256, 3)
+    else:
+        cfg = dict(type='Recognizer2D',
+                   backbone=dict(type='ResNet', depth=50, out_indices=(3,)),
+                   cls_head=dict(type='TSNClsHead', spatial_type='avg',
+                                 in_channels=2048, num_classes=400),
+                   module_cfg=dict(type='MVF', n_segment=8, alpha=0.125,
+                                   mvf_freq=(0, 0, 1, 1), mode='THW'))
+        shape = (1, 24 * 8, 256, 256, 3)
+    model = build_recognizer(dict(cfg, dtype='bfloat16'),
+                             test_cfg=dict(average_clips='prob'))
+    model.init_weights(torch.Generator().manual_seed(0), randomize_bn=True)
+    video = np.random.default_rng(1).integers(0, 256, shape, dtype=np.uint8)
+    return model, video
+
+
+@pytest.mark.parametrize('family', ['i3d', 'flagship'])
+def test_eval_step_scores_a_staged_video_as_an_uploaded_one(cuda, family):
+    """The eval step's scores of a host video (staged through the pinned
+    ring, in more than one chunk, under one ``upload.stage`` span) equal
+    bit for bit its scores of the same video handed over already on the
+    card (passed through)."""
+    from mvfnet_tpu_torch.engine import prefetch
+    from mvfnet_tpu_torch.utils import tracing
+    model, video = _eval_case(family)
+    assert video.nbytes > prefetch.CHUNK_BYTES
+    norm = dict(mean=[123.675, 116.28, 103.53], std=[58.395, 57.12, 57.375],
+                to_rgb=True, device=True)
+    step = make_eval_step(model, norm_cfg=norm)
+    tracing.enable()
+    try:
+        staged = step(model, video).float().cpu()
+        spans = [d for d in tracing.collect() if d['name'] == 'upload.stage']
+    finally:
+        tracing.disable()
+        tracing.clear()
+    chunks = len(prefetch.chunk_plan(video.nbytes))
+    assert step.upload.staged == 1 and step.upload.passed == 0
+    assert step.upload.stager.chunks == chunks > 1
+    assert [(d['attrs']['bytes'], d['attrs']['chunks']) for d in spans] == \
+        [(video.nbytes, chunks)]
+    uploaded = step(model, torch.from_numpy(video).cuda()).float().cpu()
+    assert step.upload.staged == 1 and step.upload.passed == 1
+    assert bool(torch.isfinite(staged).all())
+    assert torch.equal(staged, uploaded)
 
 
 @pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
