@@ -23,27 +23,75 @@ ones: conv1, conv3 and the shortcut; the 'mobile' conv2 is depthwise) in
 the stages ``quant_stages`` selects, except a stage the JAX package runs
 in its space-to-depth layout (``s2d_stages`` where that layout applies to
 the stage's input), which stays unquantized here too; training raises.
+
+``form='pyslowfast'`` builds the published X3D (Feichtenhofer 2020,
+PySlowFast's ``X3D``) instead of the form above (``form='reference'``,
+the default): a 5x1x1 ``conv1_3x1`` with no relu before it; SE on blocks
+0, 2, 4, ... of each stage (see ``X3DBottleneck``); relu after a block's
+conv1 and swish after its SE; and PySlowFast's ``X3DHead``: ``conv5``
+then the norm ``conv5_bn`` and relu, and a relu after ``fc1``. X3D-M is
+``depth=2.2``, ``conv1_kernel=(1, 3, 3)``, ``conv1_stride_t=1``,
+``spatial_strides=(2, 2, 2, 2)``, ``no_pool2`` and that form.
+
+Each forward of a depthwise conv (the stem's temporal conv, every
+'mobile' conv2) counts in ``X3DBottleneck.counts['dwconv']`` and each SE
+in ``['se']``; with tracing on, both are spanned (``model.dwconv``,
+``model.se``) in the forward and in the backward.
 """
 
 from __future__ import annotations
 
+import collections
 from typing import Dict, Optional, Sequence, Union
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from ...ops.mvf import hard_swish
+from ...utils import tracing
 from ..builder import BACKBONES
 from ..common import (SEModule, check_quant_stages, conv3d, make_norm,
-                      max_pool3d, quant_modules, refuse_quant_training)
+                      max_pool3d, quant_modules, refuse_quant_training,
+                      round_width)
 from .resnet_i3d import (init_weights_3d, norm_eval_train, per_block,
                          quant_for, run_stage)
+
+FORMS = ('reference', 'pyslowfast')
+
+
+def check_form(form: str) -> None:
+    if form not in FORMS:
+        raise ValueError(f'form {form!r}: one of {FORMS}')
+
+
+def depthwise_conv(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``conv(x)`` for a depthwise conv: counted in
+    ``X3DBottleneck.counts['dwconv']`` and, with tracing on, spanned
+    ``model.dwconv`` in the forward and in the backward (the data and
+    the weight gradient)."""
+    X3DBottleneck.counts['dwconv'] += 1
+    with tracing.span('model.dwconv'):
+        out = conv(x)
+    tracing.span_backward('model.dwconv', out)
+    return out
 
 
 class X3DBottleneck(nn.Module):
     """conv1 -> norm -> act -> conv2 (depthwise with the 'mobile' style)
-    -> norm -> SE -> act -> conv3 -> norm, + shortcut, relu; act is
-    hard-swish (relu without ``with_hs``)."""
+    -> norm -> SE -> act -> conv3 -> norm, + shortcut, relu. With
+    ``form='reference'`` both acts are hard-swish (relu without
+    ``with_hs``) and SE is the reference's (``channels // 16`` wide, a
+    hard sigmoid with ``with_hs``); with 'pyslowfast' the acts are relu
+    then swish and SE is PySlowFast's X3D SE (``round_width(channels,
+    1/16)`` wide, a sigmoid), its gate kept in fp32 (``SEModule``'s
+    ``fp32_gate``).
+
+    Forwards of the depthwise conv2 and of SE count in the class's
+    ``counts`` (``'dwconv'``, with the stem's temporal conv; ``'se'``).
+    """
+
+    counts = collections.Counter()
 
     def __init__(self, inplanes: int, planes: int, out_channels: int,
                  spatial_stride: int = 1, temporal_stride: int = 1,
@@ -52,10 +100,15 @@ class X3DBottleneck(nn.Module):
                  inflate_style: str = 'mobile',
                  norm_cfg: Optional[Dict] = None, with_se: bool = True,
                  with_hs: bool = True, quant: Optional[str] = None,
-                 quant_ops: Sequence[str] = ('pointwise',)):
+                 quant_ops: Sequence[str] = ('pointwise',),
+                 form: str = 'reference'):
         super().__init__()
+        check_form(form)
         ss, ts, d = spatial_stride, temporal_stride, dilation
-        self.with_hs = with_hs
+        if form == 'pyslowfast':
+            self.acts = (torch.relu, F.silu)
+        else:
+            self.acts = (hard_swish if with_hs else torch.relu,) * 2
         if style == 'pytorch':
             c1_s, c2_s, c1_t, c2_t = 1, ss, 1, ts
         else:
@@ -67,15 +120,20 @@ class X3DBottleneck(nn.Module):
         else:
             k1, p1, k2, p2 = (1, 1, 1), (0, 0, 0), (1, 3, 3), (0, d, d)
             c1_t = c2_t = 1
-        depthwise = inflate_style == 'mobile' and if_inflate
+        self.depthwise = inflate_style == 'mobile' and if_inflate
         self.conv1 = conv3d(inplanes, planes, k1, stride=(c1_t, c1_s, c1_s),
                             padding=p1, quant=quant_for(quant, quant_ops, k1))
         self.bn1 = make_norm(norm_cfg, planes)
         self.conv2 = conv3d(planes, planes, k2, stride=(c2_t, c2_s, c2_s),
                             padding=p2, dilation=(1, d, d),
-                            groups=planes if depthwise else 1)
+                            groups=planes if self.depthwise else 1)
         self.bn2 = make_norm(norm_cfg, planes)
-        self.se = SEModule(planes, 16, with_hs) if with_se else None
+        self.se = None
+        if with_se and form == 'reference':
+            self.se = SEModule(planes, 16, with_hs)
+        elif with_se:
+            self.se = SEModule(planes, hidden=round_width(planes, 1 / 16),
+                               fp32_gate=True)
         pointwise = quant_for(quant, quant_ops, (1, 1, 1))
         self.conv3 = conv3d(planes, out_channels, (1, 1, 1), quant=pointwise)
         self.bn3 = make_norm(norm_cfg, out_channels)
@@ -84,15 +142,15 @@ class X3DBottleneck(nn.Module):
                    quant=pointwise),
             make_norm(norm_cfg, out_channels)) if with_downsample else None)
 
-    def _act(self, x: torch.Tensor) -> torch.Tensor:
-        return hard_swish(x) if self.with_hs else torch.relu(x)
-
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = self._act(self.bn1(self.conv1(x)))
-        out = self.bn2(self.conv2(out))
+        act_a, act_b = self.acts
+        out = act_a(self.bn1(self.conv1(x)))
+        out = self.bn2(depthwise_conv(self.conv2, out) if self.depthwise
+                       else self.conv2(out))
         if self.se is not None:
+            X3DBottleneck.counts['se'] += 1
             out = self.se(out)
-        out = self.bn3(self.conv3(self._act(out)))
+        out = self.bn3(self.conv3(act_b(out)))
         identity = x if self.downsample is None else self.downsample(x)
         return torch.relu(out + identity)
 
@@ -128,8 +186,11 @@ class ResNet_X3D(nn.Module):
                  with_cp: bool = False, zero_init_residual: bool = True,
                  s2d_stages: Sequence[int] = (), quant: Optional[str] = None,
                  quant_stages: Sequence[int] = (1, 1, 1, 1),
-                 quant_ops: Sequence[str] = ('pointwise',)):
+                 quant_ops: Sequence[str] = ('pointwise',),
+                 form: str = 'reference'):
         super().__init__()
+        check_form(form)
+        published = form == 'pyslowfast'
         if depth not in self.arch_settings:
             raise KeyError(f'invalid depth {depth} for resnet_x3d')
         check_quant_stages(quant, quant_stages, num_stages)
@@ -158,8 +219,9 @@ class ResNet_X3D(nn.Module):
         stem = int(24 * rw)
         self.conv1 = conv3d(in_channels, stem, tuple(conv1_kernel),
                             stride=(conv1_stride_t, 2, 2))
+        self.conv1_relu = not published
         self.conv1_3x1 = nn.Sequential(
-            conv3d(stem, stem, (3, 1, 1), groups=stem),
+            conv3d(stem, stem, (5 if published else 3, 1, 1), groups=stem),
             make_norm(norm_cfg, stem))
         for i, num_blocks in enumerate(stage_blocks):
             inplanes = int(24 * rw * ru ** (i - 1)) if i > 0 else stem
@@ -179,6 +241,7 @@ class ResNet_X3D(nn.Module):
                                                 or inplanes != out_ch),
                     style=style, if_inflate=stage_inflate[j] == 1,
                     inflate_style=inflate_style, norm_cfg=norm_cfg,
+                    with_se=not published or j % 2 == 0, form=form,
                     quant=quant if quant and quant_stages[i] else None,
                     quant_ops=tuple(quant_ops)))
                 inplanes = out_ch
@@ -190,6 +253,8 @@ class ResNet_X3D(nn.Module):
                     m.in_s2d_stage = True
         feat_dim = int(24 * rw * 2 ** (len(stage_blocks) - 1))
         self.conv5 = conv3d(feat_dim, int(feat_dim * rb), (1, 1, 1))
+        self.conv5_bn = (make_norm(norm_cfg, int(feat_dim * rb))
+                         if published else None)
         self.fc1 = conv3d(int(feat_dim * rb), 2048, (1, 1, 1))
 
     init_weights = init_weights_3d
@@ -222,9 +287,11 @@ class ResNet_X3D(nn.Module):
         """x: (N, C, T, H, W), any memory format; returns the (N, 2048, 1,
         1, 1) features, after the maps of the other ``out_indices``."""
         refuse_quant_training(self.quant, self.training)
-        x = torch.relu(self.conv1(
-            x.contiguous(memory_format=torch.channels_last_3d)))
-        x = torch.relu(self.conv1_3x1(x))
+        x = self.conv1(x.contiguous(memory_format=torch.channels_last_3d))
+        if self.conv1_relu:
+            x = torch.relu(x)
+        conv_t, norm_t = self.conv1_3x1
+        x = torch.relu(norm_t(depthwise_conv(conv_t, x)))
         remat = self.with_cp and self.training and torch.is_grad_enabled()
         outs = []
         for i in range(self.num_stages):
@@ -242,6 +309,10 @@ class ResNet_X3D(nn.Module):
                 outs.append(x)
             if not self.no_pool2 and i == 0:
                 x = max_pool3d(x, (2, 1, 1), (2, 1, 1), (0, 0, 0))
-        x = self.conv5(x).mean(dim=(2, 3, 4), keepdim=True)
-        x = self.fc1(x)
+        x = self.conv5(x)
+        if self.conv5_bn is None:
+            x = self.fc1(x.mean(dim=(2, 3, 4), keepdim=True))
+        else:
+            x = torch.relu(self.conv5_bn(x))
+            x = torch.relu(self.fc1(x.mean(dim=(2, 3, 4), keepdim=True)))
         return tuple(outs) + (x,) if outs else x

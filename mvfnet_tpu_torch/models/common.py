@@ -712,22 +712,46 @@ def avg_pool3d(x: torch.Tensor, kernel, stride, padding=(0, 0, 0),
                         count_include_pad=count_include_pad)
 
 
+def round_width(width: float, multiplier: float, min_width: int = 8,
+                divisor: int = 8) -> int:
+    """PySlowFast's ``round_width``: ``width * multiplier`` to the nearest
+    multiple of ``divisor``, at least ``min_width``, one ``divisor`` more
+    where that falls under 90% of it (X3D's SE widths: 8 for 54 and 108
+    channels at 1/16, 16 for 216, 32 for 432)."""
+    width *= multiplier
+    out = max(min_width, int(width + divisor / 2) // divisor * divisor)
+    if out < 0.9 * width:
+        out += divisor
+    return int(out)
+
+
 class SEModule(nn.Module):
     """Squeeze-and-excitation on NC... input of any spatial rank (the
     reference's SE3D, ``se_module.py:27-67``, and the JAX package's
     ``SEModule``): the mean over every axis after the channels, ``fc1``,
     relu, ``fc2``, a sigmoid (hard with ``use_hs``), and the scale. ``fc1``
     and ``fc2`` keep the reference's 1x1x1 ``Conv3d`` weights with biases;
-    they run as matrix products on the pooled vector."""
+    they run as matrix products on the pooled vector. ``hidden`` sets
+    their inner width, ``channels // reduction`` when None. With tracing
+    on, its forward and its backward are each spanned ``model.se``.
+
+    With ``fp32_gate`` a bf16 input keeps the gate in fp32: the mean, both
+    FCs and the sigmoid run in fp32, and the scale multiplies the input
+    by the fp32 gate and rounds the product once, so that the backward
+    sums the gate's gradient over fp32 products. A gate rounded to bf16
+    scales a whole channel of a clip by the same wrong factor, which no
+    later sum averages away. An fp32 or fp64 input computes as without
+    it."""
 
     def __init__(self, channels: int, reduction: int = 16,
-                 use_hs: bool = False):
+                 use_hs: bool = False, hidden: Optional[int] = None,
+                 fp32_gate: bool = False):
         super().__init__()
         self.use_hs = use_hs
-        self.fc1 = conv3d(channels, channels // reduction, (1, 1, 1),
-                          bias=True)
-        self.fc2 = conv3d(channels // reduction, channels, (1, 1, 1),
-                          bias=True)
+        self.fp32_gate = fp32_gate
+        hidden = channels // reduction if hidden is None else hidden
+        self.fc1 = conv3d(channels, hidden, (1, 1, 1), bias=True)
+        self.fc2 = conv3d(hidden, channels, (1, 1, 1), bias=True)
 
     @staticmethod
     def _fc(fc: Conv3d, y: torch.Tensor) -> torch.Tensor:
@@ -735,10 +759,17 @@ class SEModule(nn.Module):
                         fc.bias.to(y.dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = x.mean(dim=tuple(range(2, x.ndim)))
-        y = self._fc(self.fc2, torch.relu(self._fc(self.fc1, y)))
-        y = hard_sigmoid(y) if self.use_hs else torch.sigmoid(y)
-        return x * y.reshape(y.shape + (1,) * (x.ndim - 2))
+        dims = tuple(range(2, x.ndim))
+        with tracing.span('model.se'):
+            stat = (torch.promote_types(x.dtype, torch.float32)
+                    if self.fp32_gate else x.dtype)
+            pooled = x.mean(dim=dims, dtype=stat)
+            y = self._fc(self.fc2, torch.relu(self._fc(self.fc1, pooled)))
+            y = hard_sigmoid(y) if self.use_hs else torch.sigmoid(y)
+            # an fp32 gate promotes the product to fp32, rounded once
+            out = (x * y.reshape(y.shape + (1,) * len(dims))).to(x.dtype)
+        tracing.span_backward('model.se', out, pooled)
+        return out
 
 
 def max_pool_same_as_torch(window: int = 3, stride: int = 2,

@@ -131,6 +131,32 @@ def span(name: str, **attrs):
     return _Span(name, attrs)
 
 
+def span_backward(name: str, output, last=None) -> None:
+    """While tracing is on, span ``name`` over the backward of the work
+    that made ``output``: the span opens when ``output``'s gradient node
+    is about to run and closes when ``last``'s (``output``'s own when
+    None) has run, on the thread that runs the backward. It hooks the
+    autograd graph and adds no node to it, so gradients are unchanged;
+    off, or with no graph, it does nothing. ``last`` is the earliest
+    result of the spanned work in the forward, whose node runs last."""
+    end = output if last is None else last
+    if not _on or output.grad_fn is None or end.grad_fn is None:
+        return
+    opened = []
+
+    def enter(grad_outputs):
+        s = span(name)
+        s.__enter__()
+        opened.append(s)
+
+    def leave(grad_inputs, grad_outputs):
+        if opened:
+            opened.pop().__exit__(None, None, None)
+
+    output.grad_fn.register_prehook(enter)
+    end.grad_fn.register_hook(leave)
+
+
 def enable() -> None:
     """Turn spans on."""
     global _on
